@@ -53,14 +53,14 @@ def main():
         ("high recall (dim/4, 16x)", CompressionConfig.high_recall_config(dim), IndexType.HNSWPQ),
         ("high compression (dim/16, 64x)", CompressionConfig.high_compression_config(dim), IndexType.HNSWPQ),
         # memory-bound scoring: candidate generation reads ONLY the 32x codes
-        # + codebooks (Pallas decode kernel + MXU scan); raw vectors are
+        # + codebooks (PQ decode + one matmul); raw vectors are
         # touched just for the exact top-pool refine
         ("memory-bound (adc_fast, 32x)", CompressionConfig.recommended_config(dim), "adc_fast"),
         # PCA-proxy multi-stage: a [dim/8]-dim truncated-PCA first stage
         # (64 B/vec at 512d) + exact refine — ops/pca
         ("pca proxy (dim/8 dims + refine)", CompressionConfig.recommended_config(dim), "pca"),
-        # the >HBM compressed store: NO raw f32 matrix exists (4x smaller
-        # total); the fused Pallas kernel streams the store's own int8 rows
+        # the compressed store: NO raw f32 matrix exists (4x smaller
+        # total); the int8 pool scan streams the store's own int8 rows
         ("compressed store (no raw f32, 4x)", None, "compressed"),
         # + second int8 level: ~16-bit refine precision at half f32 bytes —
         # the refine-ordering recall ceiling disappears (docs/COMPRESSED_TIER.md)

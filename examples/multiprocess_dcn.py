@@ -1,11 +1,12 @@
-"""Multi-process (multi-host / multi-slice) search over DCN — runnable sketch.
+"""Multi-process (multi-host) search across the data-center network — runnable
+sketch.
 
 The sharded device programs (`vector_db_tpu/parallel/sharded.py`) are pure
 `shard_map` array programs: under a multi-process JAX runtime they compile
-and run unchanged, with XLA routing the top-k merge collectives over ICI
-within a slice and DCN across slices.  What IS single-controller today is
-the `ShardedDatabase` host wrapper (its numpy mirrors assume one writer
-process) — see docs/SCALING.md §3 for the exact boundary.
+and run unchanged, with XLA handing the top-k merge collectives to NCCL
+(NVLink within a host, the network across hosts).  What IS single-controller
+today is the `ShardedDatabase` host wrapper (its numpy mirrors assume one
+writer process) — see docs/SCALING.md §3 for the exact boundary.
 
 This example is the multi-process recipe:
 
@@ -48,7 +49,8 @@ def main(argv=None):
     if args.coordinator:
         # the one line that turns N single-host runtimes into one global
         # runtime: after this, jax.devices() spans every host and pjit/
-        # shard_map programs are SPMD across all of them (DCN between hosts)
+        # shard_map programs are SPMD across all of them (network between
+        # hosts)
         jax.distributed.initialize(
             coordinator_address=args.coordinator,
             num_processes=args.num_processes,

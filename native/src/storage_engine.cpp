@@ -1,6 +1,6 @@
 // vdbstore — native storage engine for vector_db_tpu.
 //
-// TPU-native framework's equivalent of the reference's persistence layer
+// The JAX framework's equivalent of the reference's persistence layer
 // (reference: storage/VectorStorage.java — Jackson JSON file, write-behind
 // flush every 1000 mutations, ReentrantReadWriteLock) and of the native
 // save/load ABI the reference left as TODO stubs

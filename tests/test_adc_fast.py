@@ -1,5 +1,5 @@
-"""Fast memory-bound mode tests: decode kernel + adc_fast_search pipeline
-(interpret mode on the CPU backend; TPU numbers live in BENCH_REPORT.md)."""
+"""Fast memory-bound mode tests: the PQ decode (ops/adc.pq_decode_recon_t)
+and the adc_fast_search pipeline against numpy oracles."""
 
 import jax
 import jax.numpy as jnp
@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 
 from vector_db_tpu.ops import adc
-from vector_db_tpu.ops.pallas_kernels import pq_decode_recon_t
+from vector_db_tpu.ops.adc import pq_decode_recon_t
 
 
 @pytest.fixture(scope="module")
@@ -23,8 +23,7 @@ class TestDecodeKernel:
     def test_matches_numpy_decode(self, pq_state):
         s, k_tab, sd, n, cb, codes = pq_state
         cbt = adc.codebooks_to_cbt(jnp.asarray(cb))
-        recon_t = pq_decode_recon_t(jnp.asarray(codes.T.copy()), cbt,
-                                    block_n=256)
+        recon_t = pq_decode_recon_t(jnp.asarray(codes.T.copy()), cbt)
         want = np.concatenate(
             [cb[si, codes[:, si], :] for si in range(s)], axis=1
         ).T
@@ -38,8 +37,7 @@ class TestDecodeKernel:
         cb = rng.normal(size=(s, k_tab, sd)).astype(np.float32)
         codes = rng.integers(0, k_tab, size=(n, s)).astype(np.uint8)
         cbt = adc.codebooks_to_cbt(jnp.asarray(cb))
-        recon_t = pq_decode_recon_t(jnp.asarray(codes.T.copy()), cbt,
-                                    block_n=256)
+        recon_t = pq_decode_recon_t(jnp.asarray(codes.T.copy()), cbt)
         want = np.concatenate(
             [cb[si, codes[:, si], :] for si in range(s)], axis=1
         ).T
@@ -51,7 +49,7 @@ class TestDecodeKernel:
         s, k_tab, sd, n, cb, codes = pq_state
         cbt = adc.codebooks_to_cbt(jnp.asarray(cb))
         recon_t = pq_decode_recon_t(jnp.asarray(codes.T[:, :300].copy()),
-                                    cbt, block_n=256)
+                                    cbt)
         assert recon_t.shape == (s * sd, 300)
 
 
@@ -162,9 +160,9 @@ class TestAutoMode:
     def test_crossover_selection(self):
         from vector_db_tpu.index.hnsw_pq import _auto_scan_mode
 
-        # blocked exact scan up to mid N (520k QPS @ 100k, 134k @ 512k);
-        # the fused Pallas bf16-shadow kernel overtakes at large N
-        # (83.5k vs 64.6k QPS @ 1M) — crossover threshold 700k live rows
+        # blocked exact scan up to mid N; the int8 pool scan takes over
+        # at large N — crossover threshold 700k live rows (not measured
+        # on the H100; see ROADMAP A5)
         assert _auto_scan_mode(False, 100_000) == "scan_exact"
         assert _auto_scan_mode(False, 524_288) == "scan_exact"
         assert _auto_scan_mode(False, 1_000_000) == "scan_pallas_int8"
@@ -228,7 +226,7 @@ class TestApproxPool:
         ct = jnp.asarray(codes.T.copy())
         cbt = adc.codebooks_to_cbt(jnp.asarray(cb))
         valid = jnp.ones(n, bool)
-        from vector_db_tpu.ops.pallas_kernels import pq_decode_recon_t
+        from vector_db_tpu.ops.adc import pq_decode_recon_t
         r32 = pq_decode_recon_t(ct, cbt).astype(jnp.float32)
         cached = jnp.sum(r32 * r32, axis=0)
         args = (jnp.asarray(base[:5]), ct, cbt, valid, jnp.asarray(base),
@@ -295,65 +293,6 @@ class TestBalancedPerm:
         a, _ = idx.search_batch(base[:6], 5)
         b, _ = idx2.search_batch(base[:6], 5)
         np.testing.assert_array_equal(a, b)
-
-
-class TestFusedAdcPool:
-    def test_matches_reference_bucket_rule(self):
-        from vector_db_tpu.ops.pallas_kernels import fused_adc_pool
-
-        rng = np.random.default_rng(41)
-        s, k_tab, sd, n, qn = 4, 16, 4, 1024, 8
-        d = s * sd
-        cb = rng.normal(size=(s, k_tab, sd)).astype(np.float32)
-        codes = rng.integers(0, k_tab, size=(n, s)).astype(np.uint8)
-        q = rng.normal(size=(qn, d)).astype(np.float32)
-        recon = np.concatenate(
-            [cb[si, codes[:, si], :] for si in range(s)], axis=1
-        ).astype(np.float32)
-        norms = (recon ** 2).sum(1).astype(np.float32)
-        norms[5] = np.inf  # dead slot
-        w = 256
-        vals, idx = fused_adc_pool(
-            jnp.asarray(q), jnp.asarray(codes.T.copy()),
-            adc.codebooks_to_cbt(jnp.asarray(cb)), jnp.asarray(norms),
-            w, block_n=128, q_tile=8,
-        )
-        # reference: bucket b over slots {b + t*w}, dist = norms - 2 q.recon
-        dist = norms[None, :] - 2.0 * (q @ recon.T)
-        dist3 = dist.reshape(qn, n // w, w)
-        want_arg = dist3.argmin(axis=1)  # [Q, w]
-        want_idx = want_arg * w + np.arange(w)[None, :]
-        got = np.asarray(idx)
-        # bf16 matmul rounding can flip near-ties; check values instead
-        want_val = dist3.min(axis=1)
-        np.testing.assert_allclose(np.asarray(vals), want_val,
-                                   atol=0.15, rtol=1e-2)
-        agree = (got == want_idx).mean()
-        assert agree > 0.97, agree
-        assert 5 not in got  # dead slot never wins
-
-
-class TestFusedPoolMode:
-    def test_fused_mode_through_pipeline(self):
-        rng = np.random.default_rng(51)
-        s, k_tab, sd, n = 8, 16, 4, 1024
-        dim = s * sd
-        cb = rng.normal(size=(s, k_tab, sd)).astype(np.float32)
-        base = rng.normal(size=(n, dim)).astype(np.float32)
-        codes = np.asarray(adc.pq_encode(jnp.asarray(base), jnp.asarray(cb)))
-        valid = np.ones(n, bool)
-        valid[9] = False
-        q = base[:6]
-        args = (jnp.asarray(q), jnp.asarray(codes.T.copy()),
-                adc.codebooks_to_cbt(jnp.asarray(cb)), jnp.asarray(valid),
-                jnp.asarray(base), jnp.arange(n, dtype=jnp.int32), 3)
-        d_f, e_f = adc.adc_fast_search(*args, bucket=4, winners=1,
-                                       pool_mode="fused")
-        d_b, e_b = adc.adc_fast_search(*args, bucket=4, winners=1,
-                                       pool_mode="bucket")
-        # pools differ only in bucket stride; exact refine makes top-1 agree
-        assert (np.asarray(e_f)[:, 0] == np.asarray(e_b)[:, 0]).all()
-        assert 9 not in np.asarray(e_f)
 
 
 class TestPackedRefine:
@@ -429,7 +368,7 @@ class TestSelectNarrowing:
                 adc.codebooks_to_cbt(jnp.asarray(cb)), jnp.ones(n, bool),
                 jnp.asarray(base), jnp.arange(n, dtype=jnp.int32), 3)
         d1, e1 = adc.adc_fast_search(*args, bucket=4, winners=1,
-                                     pool_mode="fused", select_r=64)
+                                     pool_mode="bucket", select_r=64)
         assert (np.asarray(e1)[:, 0] == np.arange(4)).all()
         d2, e2 = adc.adc_fast_search(*args, bucket=4, winners=1,
                                      chunk_n=256, select_r=64)
@@ -483,8 +422,10 @@ class TestDecodeCross:
         q = jnp.asarray(rng.normal(size=(5, s * sd)).astype(np.float32))
         cbt = adc.codebooks_to_cbt(jnp.asarray(cb))
         ct = jnp.asarray(codes.T.copy())
-        recon = pq_decode_recon_t(ct, cbt, block_n=256).astype(jnp.float32)
-        want = np.asarray(q @ recon)
+        recon = pq_decode_recon_t(ct, cbt).astype(jnp.float32)
+        # the cross term's contract: bf16 operands, f32 accumulation
+        q16 = np.asarray(q.astype(jnp.bfloat16).astype(jnp.float32))
+        want = q16 @ np.asarray(recon)
         got = np.asarray(adc._decode_cross(q, ct, cbt))
         np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2)
 
@@ -496,23 +437,25 @@ class TestDecodeCross:
         cbt = adc.codebooks_to_cbt(jnp.asarray(cb))
         ct = jnp.asarray(codes.T.copy())
         q = jnp.asarray(rng.normal(size=(3, s * sd)).astype(np.float32))
-        recon = pq_decode_recon_t(ct, cbt, block_n=256).astype(jnp.float32)
-        want = np.asarray(q @ recon)
+        recon = pq_decode_recon_t(ct, cbt).astype(jnp.float32)
+        # the cross term's contract: bf16 operands, f32 accumulation
+        q16 = np.asarray(q.astype(jnp.bfloat16).astype(jnp.float32))
+        want = q16 @ np.asarray(recon)
         got = np.asarray(adc._decode_cross(q, ct, cbt))
         np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2)
 
 
 class TestOddCodebookSizes:
     def test_decode_k200(self):
-        """128 < K < 256 pads to the two-vreg table (regression: negative
-        pad width crashed any num_centroids in (128, 256))."""
+        """128 < K < 256: a table that is not a power of two (regression:
+        any num_centroids in (128, 256) once crashed the decode)."""
         rng = np.random.default_rng(8)
         s, k_tab, sd, n = 4, 200, 4, 512
         cb = rng.normal(size=(s, k_tab, sd)).astype(np.float32)
         codes = rng.integers(0, k_tab, size=(n, s)).astype(np.uint8)
         cbt = adc.codebooks_to_cbt(jnp.asarray(cb))
         ct = jnp.asarray(codes.T.copy())
-        recon = pq_decode_recon_t(ct, cbt, block_n=256)
+        recon = pq_decode_recon_t(ct, cbt)
         want = np.concatenate(
             [cb[si, codes[:, si], :] for si in range(s)], axis=1).T
         np.testing.assert_allclose(np.asarray(recon, np.float32), want,
@@ -532,8 +475,8 @@ class TestOddCodebookSizes:
         assert ids.shape == (8, 5)
 
     def test_fused_pool_k200(self):
-        from vector_db_tpu.ops.pallas_kernels import fused_adc_pool
-
+        """The decode + matmul + bucket pool over a K=200 table: one slot
+        per strided bucket, each in range or -1."""
         rng = np.random.default_rng(10)
         s, k_tab, sd, n = 4, 200, 4, 512
         dim = s * sd
@@ -543,6 +486,9 @@ class TestOddCodebookSizes:
         cbt = adc.codebooks_to_cbt(jnp.asarray(cb))
         ct = jnp.asarray(codes.T.copy())
         cnorms = adc.code_norms_from_codes(ct, cbt, jnp.ones(n, bool))
-        vals, idx = fused_adc_pool(jnp.asarray(base[:4]), ct, cbt, cnorms,
-                                   128)
-        assert (np.asarray(idx) >= -1).all()
+        vals, idx = adc._score_pool_chunk(
+            jnp.asarray(base[:4]).astype(adc.SCAN_DTYPE), ct, cbt, cnorms,
+            bucket=4, winners=1)
+        got = np.asarray(idx)
+        assert got.shape == (4, n // 4)
+        assert ((got >= -1) & (got < n)).all()

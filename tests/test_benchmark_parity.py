@@ -3,7 +3,7 @@
 Mirrors RecallOptimizationTest.java (flagship recall floors + config
 assertions), RecallDiagnosticTest.java (trained flag, self-retrieval on a
 fixed-seed dataset), and a scaled CompressionPerformanceTest matrix.  The
-full-size configuration (512d x 100k on TPU) runs in bench.py.
+full-size configuration (512d x 100k) runs in bench.py.
 """
 
 import numpy as np

@@ -134,7 +134,7 @@ class TestCompression:
 
 class TestScanMode:
     def test_auto_exact_scan_full_recall(self, built, rng):
-        """The auto mode (MXU exact scan) matches brute-force exactly."""
+        """The auto mode (blocked exact scan) matches brute-force exactly."""
         idx, brute, vecs = built
         idx.config.search_mode = "auto"
         try:

@@ -1,4 +1,4 @@
-"""Tests for the cluster-pruned fused scan tier (search_mode="scan_ivf").
+"""Tests for the cluster-pruned scan tier (search_mode="scan_ivf").
 
 Covers ops/ivf_scan (inversion, balanced layout, geometry, candidates)
 and the HnswPqIndex integration (raw + compressed recall, CRUD overlay,
@@ -14,7 +14,7 @@ import jax.numpy as jnp
 from vector_db_tpu.api.config import HnswPqConfig
 from vector_db_tpu.index.hnsw_pq import HnswPqIndex
 from vector_db_tpu.ops import ivf_scan
-from vector_db_tpu.ops.pallas_kernels import IVF_PW, LANES, fused_ivf_pool
+from vector_db_tpu.ops.pool_scan import IVF_PW, LANES
 
 
 def _mixture(rng, n, d, modes=40, scale=3.0):
@@ -117,9 +117,9 @@ def test_fused_ivf_pool_oracle():
             jnp.asarray(a).reshape(a.shape[0], dw, 4), jnp.int32)
 
     cids = jnp.array([1, 2], jnp.int32)
-    vals, pos = fused_ivf_pool(cids, pack(q8), pack(v8), jnp.asarray(off),
-                               jnp.asarray(sc), nlist, cap, p_cap, winners,
-                               interpret=True)
+    vals, pos = ivf_scan.ivf_cluster_pool(
+        cids, pack(q8), pack(v8), jnp.asarray(off), jnp.asarray(sc), nlist,
+        cap, p_cap, winners)
     vals, pos = np.asarray(vals), np.asarray(pos)
     # both operands unpack through the same lane permutation -> dot invariant
     cross = q8.astype(np.int32) @ v8.astype(np.int32).T

@@ -1,101 +1,23 @@
-"""Pallas fused-scan kernel tests (interpret mode on the CPU backend)."""
+"""Pool-scan tests (ops/pool_scan): the plain XLA forms against exact
+oracles, the Triton int8 kernel in interpret mode against the plain form,
+and the one function that picks the implementation per platform."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vector_db_tpu.ops.pallas_kernels import fused_scan_topk
-
-
-@pytest.fixture(scope="module")
-def data(rng=None):
-    r = np.random.default_rng(42)
-    base = r.standard_normal((2048, 64)).astype(np.float32)
-    q = r.standard_normal((16, 64)).astype(np.float32)
-    return jnp.asarray(q), jnp.asarray(base)
-
-
-class TestFusedScan:
-    def test_top1_exact(self, data):
-        q, base = data
-        bn = jnp.sum(base * base, 1)
-        d, i = fused_scan_topk(q, base, bn, 5, q_tile=8, block_n=256)
-        full = np.asarray(
-            ((np.asarray(q)[:, None] - np.asarray(base)[None]) ** 2).sum(-1)
-        )
-        got1 = np.take_along_axis(full, np.asarray(i)[:, :1], 1)
-        np.testing.assert_allclose(got1, np.sort(full, 1)[:, :1], rtol=1e-3, atol=0.1)
-
-    def test_distances_are_true_squared(self, data):
-        q, base = data
-        bn = jnp.sum(base * base, 1)
-        d, i = fused_scan_topk(q, base, bn, 5, q_tile=8, block_n=256)
-        full = np.asarray(
-            ((np.asarray(q)[:, None] - np.asarray(base)[None]) ** 2).sum(-1)
-        )
-        gathered = np.take_along_axis(full, np.asarray(i), 1)
-        np.testing.assert_allclose(np.asarray(d), gathered, rtol=1e-2, atol=0.2)
-
-    def test_bucket_recall_floor(self, data):
-        q, base = data
-        bn = jnp.sum(base * base, 1)
-        d, i = fused_scan_topk(q, base, bn, 5, q_tile=8, block_n=256)
-        full = np.asarray(
-            ((np.asarray(q)[:, None] - np.asarray(base)[None]) ** 2).sum(-1)
-        )
-        gt = np.argsort(full, 1)[:, :5]
-        rec = np.mean([
-            len(set(np.asarray(i)[r].tolist()) & set(gt[r].tolist())) / 5
-            for r in range(16)
-        ])
-        # one winner per 128-lane bucket and only 16 buckets at N=2048: the
-        # tiny-N collision floor; at N=100k the kernel measures 97% R@10
-        assert rec >= 0.65
-
-    def test_masked_rows_never_returned(self, data):
-        q, base = data
-        bn = jnp.sum(base * base, 1)
-        bn = bn.at[:64].set(jnp.inf)  # mask the first block's rows
-        d, i = fused_scan_topk(q, base, bn, 5, q_tile=8, block_n=256)
-        assert not np.isin(np.asarray(i), np.arange(64)).any()
-
-    def test_k_larger_than_buckets_pads(self, data):
-        q, base = data
-        bn = jnp.sum(base * base, 1)
-        # N=2048 -> 16 buckets < k=20
-        d, i = fused_scan_topk(q, base, bn, 20, q_tile=8, block_n=256)
-        assert i.shape == (16, 20)
-        assert (np.asarray(i)[:, 16:] == -1).all()
-
-    def test_two_winners_per_bucket(self, data):
-        q, base = data
-        bn = jnp.sum(base * base, 1)
-        d1, i1 = fused_scan_topk(q, base, bn, 5, q_tile=8, block_n=256, winners=1)
-        d2, i2 = fused_scan_topk(q, base, bn, 5, q_tile=8, block_n=256, winners=2)
-        full = np.asarray(
-            ((np.asarray(q)[:, None] - np.asarray(base)[None]) ** 2).sum(-1)
-        )
-        gt = np.argsort(full, 1)[:, :5]
-        def rec(i):
-            return np.mean([
-                len(set(np.asarray(i)[r].tolist()) & set(gt[r].tolist())) / 5
-                for r in range(16)
-            ])
-        assert rec(i2) >= rec(i1)  # second winner can only help
-
-    def test_odd_sizes_padded(self):
-        r = np.random.default_rng(3)
-        base = jnp.asarray(r.standard_normal((1000, 48)).astype(np.float32))
-        q = jnp.asarray(r.standard_normal((5, 48)).astype(np.float32))
-        bn = jnp.sum(base * base, 1)
-        d, i = fused_scan_topk(q, base, bn, 3, q_tile=8, block_n=256)
-        assert i.shape == (5, 3)
-        assert (np.asarray(i) < 1000).all()
+from vector_db_tpu.ops import pool_scan
+from vector_db_tpu.ops.pool_scan import (
+    int8_pool_scan,
+    int8g_pool_scan,
+    packed_pool_scan,
+    raw_pool_scan,
+)
 
 
 class TestFusedRawPool:
-    """fused_raw_pool: bf16 in-VMEM scan + strided-bucket pool (the
-    scan_pallas candidate stage; pallas_scan_refine orders it exactly)."""
+    """raw_pool_scan: bf16 scan + strided-bucket pool (the scan_pallas
+    candidate stage; pallas_scan_refine orders it exactly)."""
 
     def _setup(self, n=3000, d=64, q=16, offset=0.0, seed=3):
         r = np.random.default_rng(seed)
@@ -114,13 +36,11 @@ class TestFusedRawPool:
     @pytest.mark.parametrize("offset", [0.0, 10.0])
     def test_pool_contains_topk(self, metric, offset):
         from vector_db_tpu.ops.distance import blocked_knn, normalize_rows
-        from vector_db_tpu.ops.pallas_kernels import fused_raw_pool
-
         q, base = self._setup(offset=offset)
         valid = np.ones(base.shape[0], bool)
         base16, off, sc, cvec = self._shadow(base, valid, metric)
         qq = normalize_rows(q) if metric == "cosine" else q
-        vals, idx = fused_raw_pool(qq - cvec[None, :], base16, off, sc, 512)
+        vals, idx = raw_pool_scan(qq - cvec[None, :], base16, off, sc, 512)
         _, gt_i = blocked_knn(q, base, jnp.asarray(valid), 10,
                               metric=metric, block_n=512)
         got, gt = np.asarray(idx), np.asarray(gt_i)
@@ -131,15 +51,13 @@ class TestFusedRawPool:
         assert rec >= 0.9, (metric, offset, rec)
 
     def test_dead_slots_never_returned(self):
-        from vector_db_tpu.ops.pallas_kernels import fused_raw_pool
-
         q, base = self._setup()
         valid = np.ones(base.shape[0], bool)
         dead = np.random.default_rng(0).choice(base.shape[0], 500,
                                                replace=False)
         valid[dead] = False
         base16, off, sc, cvec = self._shadow(base, valid)
-        _, idx = fused_raw_pool(q - cvec[None, :], base16, off, sc, 512)
+        _, idx = raw_pool_scan(q - cvec[None, :], base16, off, sc, 512)
         live = np.asarray(idx)
         live = live[live >= 0]
         assert valid[live].all()
@@ -147,25 +65,21 @@ class TestFusedRawPool:
     def test_ragged_n_pads_in_shadow(self):
         """n not a multiple of w: the shadow builder pre-pads, pool indices
         stay inside the real corpus."""
-        from vector_db_tpu.ops.pallas_kernels import fused_raw_pool
-
         q, base = self._setup(n=1111)
         valid = np.ones(1111, bool)
         base16, off, sc, cvec = self._shadow(base, valid)
         assert base16.shape[0] % 1024 == 0
-        vals, idx = fused_raw_pool(q - cvec[None, :], base16, off, sc, 256)
+        vals, idx = raw_pool_scan(q - cvec[None, :], base16, off, sc, 256)
         got = np.asarray(idx)
         assert got.max() < 1111
         # padded tail is +inf off -> never selected as finite
         assert (np.asarray(vals)[got >= 0] < np.inf).all()
 
     def test_small_batch_single_query(self):
-        from vector_db_tpu.ops.pallas_kernels import fused_raw_pool
-
         q, base = self._setup(q=1)
         valid = np.ones(base.shape[0], bool)
         base16, off, sc, cvec = self._shadow(base, valid)
-        vals, idx = fused_raw_pool(q - cvec[None, :], base16, off, sc, 256)
+        vals, idx = raw_pool_scan(q - cvec[None, :], base16, off, sc, 256)
         assert idx.shape == (1, 256)
         full = ((np.asarray(q)[:, None] - np.asarray(base)[None]) ** 2).sum(-1)
         best = int(np.argmin(full[0]))
@@ -173,8 +87,8 @@ class TestFusedRawPool:
 
 
 class TestFusedInt8Pool:
-    """fused_int8_pool: s8 x s8 -> s32 in-VMEM scan + strided-bucket pool
-    (the scan_pallas_int8 candidate stage; pallas_scan8_refine orders it
+    """int8_pool_scan: s8 x s8 -> s32 scan + strided-bucket pool (the
+    scan_pallas_int8 candidate stage; pallas_scan8_refine orders it
     exactly).  Same contract as TestFusedRawPool with a quantized shadow."""
 
     def _setup(self, n=3000, d=64, q=16, offset=0.0, seed=3):
@@ -194,14 +108,12 @@ class TestFusedInt8Pool:
     @pytest.mark.parametrize("offset", [0.0, 10.0])
     def test_pool_contains_topk(self, metric, offset):
         from vector_db_tpu.ops.distance import blocked_knn, normalize_rows
-        from vector_db_tpu.ops.pallas_kernels import fused_int8_pool
-
         q, base = self._setup(offset=offset)
         valid = np.ones(base.shape[0], bool)
         base8, off, sc, cvec = self._shadow(base, valid, metric)
         assert base8.dtype == jnp.int8
         qq = normalize_rows(q) if metric == "cosine" else q
-        vals, idx = fused_int8_pool(qq - cvec[None, :], base8, off, sc, 512)
+        vals, idx = int8_pool_scan(qq - cvec[None, :], base8, off, sc, 512)
         _, gt_i = blocked_knn(q, base, jnp.asarray(valid), 10,
                               metric=metric, block_n=512)
         got, gt = np.asarray(idx), np.asarray(gt_i)
@@ -212,38 +124,32 @@ class TestFusedInt8Pool:
         assert rec >= 0.9, (metric, offset, rec)
 
     def test_dead_slots_never_returned(self):
-        from vector_db_tpu.ops.pallas_kernels import fused_int8_pool
-
         q, base = self._setup()
         valid = np.ones(base.shape[0], bool)
         dead = np.random.default_rng(0).choice(base.shape[0], 500,
                                                replace=False)
         valid[dead] = False
         base8, off, sc, cvec = self._shadow(base, valid)
-        _, idx = fused_int8_pool(q - cvec[None, :], base8, off, sc, 512)
+        _, idx = int8_pool_scan(q - cvec[None, :], base8, off, sc, 512)
         live = np.asarray(idx)
         live = live[live >= 0]
         assert valid[live].all()
 
     def test_ragged_n_pads_in_shadow(self):
-        from vector_db_tpu.ops.pallas_kernels import fused_int8_pool
-
         q, base = self._setup(n=1111)
         valid = np.ones(1111, bool)
         base8, off, sc, cvec = self._shadow(base, valid)
         assert base8.shape[0] % 1024 == 0
-        vals, idx = fused_int8_pool(q - cvec[None, :], base8, off, sc, 256)
+        vals, idx = int8_pool_scan(q - cvec[None, :], base8, off, sc, 256)
         got = np.asarray(idx)
         assert got.max() < 1111
         assert (np.asarray(vals)[got >= 0] < np.inf).all()
 
     def test_small_batch_single_query(self):
-        from vector_db_tpu.ops.pallas_kernels import fused_int8_pool
-
         q, base = self._setup(q=1)
         valid = np.ones(base.shape[0], bool)
         base8, off, sc, cvec = self._shadow(base, valid)
-        vals, idx = fused_int8_pool(q - cvec[None, :], base8, off, sc, 256)
+        vals, idx = int8_pool_scan(q - cvec[None, :], base8, off, sc, 256)
         assert idx.shape == (1, 256)
         full = ((np.asarray(q)[:, None] - np.asarray(base)[None]) ** 2).sum(-1)
         best = int(np.argmin(full[0]))
@@ -251,9 +157,9 @@ class TestFusedInt8Pool:
 
 
 class TestFusedInt8gPool:
-    """fused_int8g_pool: the integer-epilogue variant (round-4 VERDICT #2)
-    — global-scale shadow, i32 subtract + min-accumulate in the kernel.
-    Same pool contract as fused_int8_pool."""
+    """int8g_pool_scan: the integer-epilogue variant — global-scale
+    shadow, i32 subtract + min-accumulate.  Same pool contract as
+    int8_pool_scan."""
 
     def _setup(self, n=3000, d=64, q=16, offset=0.0, seed=3):
         r = np.random.default_rng(seed)
@@ -272,14 +178,12 @@ class TestFusedInt8gPool:
     @pytest.mark.parametrize("offset", [0.0, 10.0])
     def test_pool_contains_topk(self, metric, offset):
         from vector_db_tpu.ops.distance import blocked_knn, normalize_rows
-        from vector_db_tpu.ops.pallas_kernels import fused_int8g_pool
-
         q, base = self._setup(offset=offset)
         valid = np.ones(base.shape[0], bool)
         base8, off, sv, sgn, cvec = self._shadow(base, valid, metric)
         assert base8.dtype == jnp.int8
         qq = normalize_rows(q) if metric == "cosine" else q
-        vals, idx = fused_int8g_pool(qq - cvec[None, :], base8, off, sv,
+        vals, idx = int8g_pool_scan(qq - cvec[None, :], base8, off, sv,
                                      sgn, 512)
         _, gt_i = blocked_knn(q, base, jnp.asarray(valid), 10,
                               metric=metric, block_n=512)
@@ -289,18 +193,16 @@ class TestFusedInt8gPool:
         assert rec >= 0.9, (metric, offset, rec)
 
     def test_matches_integer_oracle_exactly(self):
-        """The kernel's bucket winners must equal the per-bucket argmin of
-        the numpy-recomputed i32 score (the kernel is deterministic given
-        the same q8/off_i — this checks the grid/epilogue wiring, not the
+        """The scan's bucket winners must equal the per-bucket argmin of
+        the numpy-recomputed i32 score (deterministic given the same
+        q8/off_i — this checks the pass/epilogue wiring, not the
         quantization)."""
-        from vector_db_tpu.ops.pallas_kernels import fused_int8g_pool
-
         q, base = self._setup(n=2048, d=64, q=8)
         valid = np.ones(2048, bool)
         base8, off, sv, sgn, cvec = self._shadow(base, valid)
         w = 512
         qc = q - cvec[None, :]
-        vals, idx = fused_int8g_pool(qc, base8, off, sv, sgn, w)
+        vals, idx = int8g_pool_scan(qc, base8, off, sv, sgn, w)
         # recompute the integer score exactly as the wrapper does
         qn = np.asarray(qc)
         sq = max(np.abs(qn).max(), 1e-12) / 127.0
@@ -324,29 +226,164 @@ class TestFusedInt8gPool:
             assert (got_idx[qi][ok & uniq] == best[ok & uniq]).all()
 
     def test_dead_slots_never_returned(self):
-        from vector_db_tpu.ops.pallas_kernels import fused_int8g_pool
-
         q, base = self._setup()
         valid = np.ones(base.shape[0], bool)
         dead = np.random.default_rng(0).choice(base.shape[0], 500,
                                                replace=False)
         valid[dead] = False
         base8, off, sv, sgn, cvec = self._shadow(base, valid)
-        _, idx = fused_int8g_pool(q - cvec[None, :], base8, off, sv, sgn,
+        _, idx = int8g_pool_scan(q - cvec[None, :], base8, off, sv, sgn,
                                   512)
         live = np.asarray(idx)
         live = live[live >= 0]
         assert valid[live].all()
 
     def test_single_query(self):
-        from vector_db_tpu.ops.pallas_kernels import fused_int8g_pool
-
         q, base = self._setup(q=1)
         valid = np.ones(base.shape[0], bool)
         base8, off, sv, sgn, cvec = self._shadow(base, valid)
-        vals, idx = fused_int8g_pool(q - cvec[None, :], base8, off, sv,
+        vals, idx = int8g_pool_scan(q - cvec[None, :], base8, off, sv,
                                      sgn, 256)
         assert idx.shape == (1, 256)
         full = ((np.asarray(q)[:, None] - np.asarray(base)[None]) ** 2).sum(-1)
         best = int(np.argmin(full[0]))
         assert best in set(np.asarray(idx)[0].tolist())
+
+
+def _dead_mask(n, seed=5):
+    valid = np.ones(n, bool)
+    valid[np.random.default_rng(seed).choice(n, n // 10, replace=False)] = False
+    return valid
+
+
+# (rows, queries, pool width): a ragged corpus, one query, and a query
+# count that is not a multiple of the kernel's query tile
+_KERNEL_CASES = {"ragged_n": (1111, 16, 256), "q1": (2048, 1, 512),
+                 "q_off_tile": (2048, 70, 256)}
+
+
+class TestTritonKernelInterpret:
+    """The Triton int8 pool kernel, run by the Pallas interpreter, against
+    the plain XLA pool scan: same winners, same scores, no dead slot."""
+
+    def _int8_args(self, n, q_n, metric):
+        from vector_db_tpu.index.hnsw_pq import _build_scan8_shadow
+
+        r = np.random.default_rng(n + q_n)
+        base = jnp.asarray((r.standard_normal((n, 64)) + 1.0)
+                           .astype(np.float32))
+        valid = _dead_mask(n)
+        base8, off, sc, cvec, _ = _build_scan8_shadow(
+            base, jnp.sum(base * base, axis=1), jnp.asarray(valid), metric,
+            128)
+        q = jnp.asarray(r.standard_normal((q_n, 64)).astype(np.float32))
+        return q - cvec[None, :], base8, off, sc, valid
+
+    def _packed_args(self, n, q_n, metric):
+        from vector_db_tpu.index.hnsw_pq import _build_scan8p_shadow
+        from vector_db_tpu.ops.distance import pack_int8_rows
+
+        n = -(-n // 128) * 128     # store capacities are LANES multiples
+        r = np.random.default_rng(n + q_n)
+        base = jnp.asarray((r.standard_normal((n, 64)) + 1.0)
+                           .astype(np.float32))
+        valid = _dead_mask(n)
+        packed, scales = pack_int8_rows(base)
+        off, sc, cvec = _build_scan8p_shadow(
+            packed, scales, jnp.sum(base * base, axis=1), jnp.asarray(valid),
+            metric)
+        q = jnp.asarray(r.standard_normal((q_n, 64)).astype(np.float32))
+        return q - cvec[None, :], packed, off, sc, valid
+
+    @pytest.mark.parametrize("case", sorted(_KERNEL_CASES))
+    @pytest.mark.parametrize("metric", ["l2", "cosine"])
+    @pytest.mark.parametrize("tier", ["int8", "packed"])
+    def test_kernel_matches_plain(self, tier, metric, case):
+        n, q_n, w = _KERNEL_CASES[case]
+        if tier == "int8":
+            qc, corpus, off, sc, valid = self._int8_args(n, q_n, metric)
+            scan = int8_pool_scan
+        else:
+            qc, corpus, off, sc, valid = self._packed_args(n, q_n, metric)
+            w = pool_scan.preserved_pool_width(corpus.shape[0], w)
+            scan = packed_pool_scan
+        vk, ik = scan(qc, corpus, off, sc, w, impl="interpret")
+        vx, ix = scan(qc, corpus, off, sc, w, impl="xla")
+        assert ik.shape == ix.shape == (q_n, w)
+        np.testing.assert_array_equal(np.asarray(ik), np.asarray(ix))
+        np.testing.assert_array_equal(np.asarray(vk), np.asarray(vx))
+        got = np.asarray(ik)
+        live = got[got >= 0]
+        assert live.size and live.max() < valid.shape[0]
+        assert valid[live].all()
+
+
+class TestPoolScanImpl:
+    """One function picks the implementation: the kernel on the GPU, the
+    plain form on the CPU, and nothing anywhere else."""
+
+    def test_gpu_selects_triton_kernel(self):
+        assert pool_scan.pool_scan_impl("gpu") == "triton"
+
+    def test_cpu_selects_plain_form(self):
+        assert pool_scan.pool_scan_impl("cpu") == "xla"
+
+    def test_other_platform_raises(self):
+        with pytest.raises(NotImplementedError):
+            pool_scan.pool_scan_impl("rocm")
+
+
+@pytest.mark.gpu
+class TestOnGpu:
+    """The pool-scan kernel and the PQ decode compiled for the card at real
+    widths, against the plain forms.  They skip off the GPU; chip_smoke.py
+    runs them on the card."""
+
+    def test_gpu_runs_the_kernel(self, gpu):
+        import jax
+
+        assert pool_scan.pool_scan_impl(jax.default_backend()) == "triton"
+
+    @pytest.mark.parametrize("tier", ["int8", "packed"])
+    def test_kernel_matches_plain_at_width(self, gpu, tier):
+        import jax
+
+        n, d, q_n, w = 1 << 18, 512, 256, 2048
+        ks = jax.random.split(jax.random.PRNGKey(7), 4)
+        base8 = jax.random.randint(ks[0], (n, d), -127, 128, jnp.int32
+                                   ).astype(jnp.int8)
+        off = jax.random.normal(ks[1], (n,), jnp.float32).at[::13].set(
+            jnp.inf)
+        sc = -jax.random.uniform(ks[2], (n,), jnp.float32, 0.5, 2.0)
+        q = jax.random.normal(ks[3], (q_n, d), jnp.float32)
+        if tier == "packed":
+            corpus = jax.lax.bitcast_convert_type(
+                base8.reshape(n, d // 4, 4), jnp.int32)
+            scan = packed_pool_scan
+        else:
+            corpus, scan = base8, int8_pool_scan
+        vk, ik = scan(q, corpus, off, sc, w, impl="triton")
+        vx, ix = scan(q, corpus, off, sc, w, impl="xla")
+        ik, ix = np.asarray(ik), np.asarray(ix)
+        assert ik.shape == (q_n, w)
+        # integer cross terms are exact; the f32 epilogue may round the
+        # last bit differently, which can swap a near-tie's winner
+        assert np.mean(ik == ix) >= 0.9999
+        fin = np.isfinite(np.asarray(vx))
+        np.testing.assert_allclose(np.asarray(vk)[fin], np.asarray(vx)[fin],
+                                   rtol=1e-5, atol=1e-5)
+
+    def test_decode_at_width(self, gpu):
+        from vector_db_tpu.ops import adc
+
+        r = np.random.default_rng(8)
+        s, k_tab, sd, n = 64, 256, 8, 1 << 17
+        cb = r.normal(size=(s, k_tab, sd)).astype(np.float32)
+        codes = r.integers(0, k_tab, size=(n, s)).astype(np.uint8)
+        got = adc.pq_decode_recon_t(jnp.asarray(codes.T.copy()),
+                                    adc.codebooks_to_cbt(jnp.asarray(cb)))
+        cb16 = np.asarray(jnp.asarray(cb).astype(jnp.bfloat16)
+                          .astype(jnp.float32))
+        want = np.concatenate([cb16[i, codes[:, i], :] for i in range(s)],
+                              axis=1).T
+        np.testing.assert_array_equal(np.asarray(got, np.float32), want)

@@ -1,6 +1,6 @@
-"""Round-4 advisor fixes: pool widths that survive the fused packed
-kernel's block rounding (advisor r3 high/medium), the empty-dirty-record
-guard, and the LSH percentile docstring alignment."""
+"""Round-4 fixes: pool widths that the packed pool scan keeps unchanged
+(it never pad-copies the packed store), the empty-dirty-record guard, and
+the LSH percentile docstring alignment."""
 
 import numpy as np
 import pytest
@@ -8,29 +8,28 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from vector_db_tpu.ops.pallas_kernels import LANES, preserved_pool_width
+from vector_db_tpu.ops.pool_scan import LANES, preserved_pool_width
 
 
 class TestPreservedPoolWidth:
     def test_invariants_sweep(self):
-        """Every returned width divides n AND survives the kernel rounding
-        (w <= block_n, or w % block_n == 0) — the exact contract
-        fused_packed_pool enforces before refusing to pad-copy the store."""
+        """Every returned width is the largest LANES multiple <= 2048 that
+        divides n — the contract packed_pool_scan enforces before refusing
+        to pad-copy the store."""
         for mult in range(1, 200):
             n = mult * LANES
             w = preserved_pool_width(n)
             assert n % w == 0, (n, w)
-            assert w <= 2048
-            assert w <= 512 or w % 512 == 0, (n, w)
+            assert w <= 2048 and w % LANES == 0, (n, w)
+            assert not any(n % v == 0
+                           for v in range(w + LANES, min(n, 2048) + 1, LANES))
 
     def test_advisor_cases(self):
-        # per_shard=1920 (capacity 15360 / 8 shards): old caller picked
-        # w=1920, kernel rounded to 2048, raised. Largest safe width: 384.
-        assert preserved_pool_width(1920) == 384
-        # legacy 128-rounded checkpoint capacity 3200: old caller picked
-        # w=640 -> kernel rounds to 1024 -> 3200 % 1024 != 0 -> raise.
-        w = preserved_pool_width(3200)
-        assert 3200 % w == 0 and (w <= 512 or w % 512 == 0)
+        # per_shard=1920 (capacity 15360 / 8 shards): the pool scan takes
+        # any LANES multiple, so the whole shard is one pass
+        assert preserved_pool_width(1920) == 1920
+        # legacy 128-rounded checkpoint capacity 3200 = 25 * 128: 640
+        assert preserved_pool_width(3200) == 640
         # modern 2048-rounded stores keep the full 2048 width
         assert preserved_pool_width(2048) == 2048
         assert preserved_pool_width(1 << 20) == 2048
@@ -42,9 +41,10 @@ class TestPreservedPoolWidth:
     @pytest.mark.parametrize("n", [1920, 3200])
     def test_legacy_capacity_scan(self, n):
         """The exact _emit path a legacy 128-rounded compressed checkpoint
-        rides (index/hnsw_pq.py scan_pallas_int8): shadow build + fused
-        packed pool + int8 refine must run (the old width pick raised
-        ValueError inside fused_packed_pool) and find the true NN."""
+        rides (index/hnsw_pq.py scan_pallas_int8): shadow build + packed
+        pool scan + int8 refine must run (a width that does not divide the
+        rows raises ValueError inside packed_pool_scan) and find the true
+        NN."""
         from vector_db_tpu.index.hnsw_pq import (_build_scan8p_shadow,
                                                  pallas_scan8p_refine)
         from vector_db_tpu.ops.distance import pack_int8_rows

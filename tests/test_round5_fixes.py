@@ -227,9 +227,9 @@ class TestScan8gClipRebuild:
     def test_global_shadow_containment_at_100k(self, rng):
         """VERDICT r4 weak #3: the global-scale shadow's pool selection at
         REAL scale (100k x 512) — scored with the exact kernel formula in
-        plain jnp (no Pallas; the TPU kernel computes the same
+        plain jnp (ops/pool_scan.int8g_pool_scan computes the same
         off_i - q8.v8 affine score) must contain the true top-10 within a
-        2048-wide pool at >= 99% (TPU-measured 0.9979 at 1M, r5)."""
+        2048-wide pool at >= 99%."""
         from vector_db_tpu.index.hnsw_pq import _build_scan8g_shadow
 
         n, dim, q_n, k, w = 100_000, 512, 64, 10, 2048
@@ -277,10 +277,9 @@ class TestScan8gClipRebuild:
 class TestHighDimLargeNBeam:
     """r5: the adaptive ef policy widens past 20k rows at high dim.
 
-    Measured at 512d x 50k uniform (the A8 worst cell), one v5e chip,
-    Q=100: ef 352 -> 75.0% R@10 (4.4 s), 768 -> 88.7% (3.9 s), 1024 ->
-    92.8% (4.9 s) — beam cost is nearly flat in ef, so the 128d-tuned
-    400 cap was leaving ~14pt of recall on the table.
+    At 512d x 50k uniform (the A8 worst cell) recall rose with ef past the
+    128d-tuned 400 cap while the beam's cost stayed nearly flat in ef;
+    its time on the H100 is not measured yet.
     """
 
     def test_wide_beam_at_high_dim_large_n(self):
@@ -306,8 +305,7 @@ class TestHighDimLargeNBeam:
 class TestBoundedFlush:
     """r5 (VERDICT r4 weak #4): `flush_chunk > 0` caps how many pending
     slots a threshold-triggered flush connects per add_batch call, bounding
-    the synchronous latency spike (measured p99 161 ms vs p50 ~5 ms with
-    full flushes at 512d).  The remainder drains on later adds and stays
+    the synchronous latency spike of a full flush at 512d.  The remainder drains on later adds and stays
     exactly searchable through the overlay meanwhile."""
 
     def _cfg(self, **kw):

@@ -440,8 +440,8 @@ class TestShardedCompressedTier:
             db.search_pca(np.zeros((1, 32), np.float32), 1)
 
     def test_fused_scan(self, mesh):
-        """search_fused: the per-chip Pallas packed-pool kernel + int8
-        refine + ICI merge (multi-chip scan_pallas_int8)."""
+        """search_fused: the per-device packed pool scan + int8 refine +
+        cross-device merge (multi-device scan_pallas_int8)."""
         rng = np.random.default_rng(34)
         n, dim = 2048, 64
         vecs = (rng.standard_normal((n, dim)) + 2.0).astype(np.float32)

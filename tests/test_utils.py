@@ -62,3 +62,46 @@ class TestTextVectorizer:
         v = tv.text_to_vector("hello", 128)
         s = tv.generate_similar_vector(v, noise=0.1)
         assert tv.cosine_similarity(v, s) > 0.9
+
+
+class TestCompileCache:
+    """One rule for JAX's persistent compile cache (utils/compile_cache):
+    JAX_COMPILATION_CACHE_DIR when it is set, else one fixed directory in
+    the checkout that .gitignore lists."""
+
+    def test_env_var_set_is_used_as_is(self, tmp_path):
+        import jax
+
+        from vector_db_tpu.utils.compile_cache import (compile_cache_dir,
+                                                       enable_compile_cache)
+
+        env = {"JAX_COMPILATION_CACHE_DIR": str(tmp_path)}
+        assert compile_cache_dir(env) == str(tmp_path)
+        before = jax.config.jax_compilation_cache_dir
+        try:
+            assert enable_compile_cache(environ=env) == str(tmp_path)
+            assert jax.config.jax_compilation_cache_dir == str(tmp_path)
+        finally:
+            jax.config.update("jax_compilation_cache_dir", before)
+
+    def test_env_var_unset_uses_the_checkout(self):
+        import os
+
+        from vector_db_tpu.utils.compile_cache import compile_cache_dir
+
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        path = compile_cache_dir({})
+        assert os.path.dirname(path) == root
+        name = os.path.basename(path)
+        with open(os.path.join(root, ".gitignore")) as f:
+            assert f"{name}/" in f.read().split()
+
+    def test_entry_points_set_no_other_directory(self):
+        import os
+
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        for rel in ("bench.py", "chip_smoke.py", "tests/conftest.py"):
+            with open(os.path.join(root, rel)) as f:
+                src = f.read()
+            assert "jax_compilation_cache_dir" not in src, rel
+            assert "enable_compile_cache" in src, rel

@@ -1,4 +1,4 @@
-"""vector_db_tpu — a TPU-native vector index-and-query engine.
+"""vector_db_tpu — a vector index-and-query engine in JAX.
 
 Built from scratch in JAX/XLA/Pallas with the capabilities of the reference
 Java/C++ vector database (elex-fu/vector_db): CRUD over (id, float32[dim])

@@ -1,13 +1,13 @@
 """Annoy-style index — forest of random-projection binary trees.
 
-TPU-native analog of the reference's Annoy (reference: index/AnnoyIndex.java —
+Analog of the reference's Annoy (reference: index/AnnoyIndex.java —
 10 trees, split hyperplane = normalized difference of two random member
 vectors, median threshold, leaves <= 10 :46-70, 563-642; lazy rebuild after
 1000 pending inserts :32-38; candidate-union + exact re-rank search :456-493;
 native/index/AnnoyIndex.cpp — explicit build(), candidate cap k*trees*2
 :117-153).
 
-TPU-first design: trees are ARRAYS, not pointer structures —
+Array design: trees are ARRAYS, not pointer structures —
 ``hyperplanes [T, nodes, d]``, ``thresholds [T, nodes]``, ``children
 [T, nodes, 2]`` and fixed-width ``leaf_items [T, n_leaves, L]``.  Tree
 construction is a host-orchestrated recursive split (deterministic, numpy);
@@ -370,13 +370,13 @@ class AnnoyIndex(VectorIndex):
             # wide beam: the reference's p=0.5 both-sides recursion visits
             # ~1.5^depth leaves per tree (AnnoyIndex.java:651-680) — a wide
             # margin-beam gives comparable coverage, and the exact re-rank
-            # is cheap MXU work.  Honest (no-backfill) Recall@10 at the
+            # is one batched matmul.  Honest (no-backfill) Recall@10 at the
             # reference config (128d x 10k, 12 trees): beam 16 -> 41%,
             # 32 -> 60%, 64 -> 80.6%, 96 -> 97.4%, 128 -> 97.8%
             # (reference publishes 85% WITH its random-fill,
             # README.md:225-232).  The default must match AnnoyConfig's
-            # documented 0 -> 128 (round-4: the 64 here was the whole gap
-            # between the 80.6% BENCH row and the config's tuned numbers).
+            # documented 0 -> 128 (a 64 here once cost recall 97.8% ->
+            # 80.6%).
             # High dim: trees lose discrimination, so the auto default
             # widens the beam (measured honest R@10 at 512d x 100k:
             # beam 128 -> 36.6%, 256 -> 57.7%, 512 -> 82.3% — r5); QPS

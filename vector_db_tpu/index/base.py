@@ -2,9 +2,10 @@
 
 Parity with the reference's twin interfaces (reference:
 src/main/java/com/vectordb/index/VectorIndex.java:11-52 and
-native/index/VectorIndex.h:9-35).  The TPU-native surface is batch-first:
+native/index/VectorIndex.h:9-35).  The surface here is batch-first:
 ``search`` takes a [Q, dim] query matrix and returns device arrays, because
-batching queries across the MXU is the whole point (SURVEY.md §2.3).
+scoring a batch of queries as one matmul is the whole point (SURVEY.md
+§2.3).
 Single-vector convenience wrappers sit on top.
 """
 
@@ -25,7 +26,7 @@ def pad_queries_pow2(queries: np.ndarray, min_q: int = 8) -> tuple[np.ndarray, i
     """Pad a [Q, d] query batch with zero rows to the next power of two.
 
     Bounds the number of distinct jit compilations per index to
-    O(log Q_max) — the TPU analog of the reference's fixed thread-pool fanout
+    O(log Q_max) — the analog of the reference's fixed thread-pool fanout
     (HNSWIndex.cpp:543-571 always splits into numThreads chunks).
     Returns (padded queries, original Q).
     """
@@ -66,11 +67,9 @@ class DeferInsertMixin:
         With ``config.flush_chunk > 0`` the threshold-triggered flush
         connects at most that many slots per call; the remaining pending
         rows stay exactly visible through the search overlay and drain on
-        subsequent adds (or an explicit :meth:`flush_pending`).  Measured
-        (r5, TPU same-process A/Bs at 10k and 100k x 512): per-add latency
-        is dispatch/compile-bound, not flush-width-bound — chunk=512 was
-        p99-neutral at both scales and costs amortized throughput at 100k
-        (0.183 vs 0.121 ms/vec), so the default stays 0 (unbounded)."""
+        subsequent adds (or an explicit :meth:`flush_pending`).  The
+        default stays 0 (unbounded); whether a chunk pays on the H100 is not
+        measured (ROADMAP A6)."""
         self._pending_mask[slots_np] = True
         self._pending_count += len(slots_np)
         self._pending_pad_cache = None

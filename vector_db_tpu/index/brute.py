@@ -1,9 +1,9 @@
 """Brute-force exact kNN index — the compute floor and ground-truth oracle.
 
-TPU-native analog of the reference's brute-force paths (reference:
+Analog of the reference's brute-force paths (reference:
 benchmark/RecallOptimizationTest.java:152-164 computes GT this way;
 index/IvfIndex.java:215-225 falls back to it).  One blocked distance matmul
-over the MXU + fused top-k; 100% recall by construction.  Every other index's
+plus a fused top-k; 100% recall by construction.  Every other index's
 tests use this as the oracle (SURVEY.md §4.5).
 """
 

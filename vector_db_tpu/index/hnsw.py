@@ -1,6 +1,6 @@
 """HNSW index — hierarchical navigable small-world graph, uncompressed.
 
-TPU-native analog of the reference's HNSW (reference: index/HnswIndex.java —
+Analog of the reference's HNSW (reference: index/HnswIndex.java —
 defaults M=32, efC=400, ef=400, cosine+normalize :21-26; insert :178-236;
 search :347-380; remove+entry fixup :254-318; buildIndex re-insert :430-473;
 native/index/HNSWIndex.{h,cpp}).

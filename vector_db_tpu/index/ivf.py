@@ -1,6 +1,6 @@
 """IVF (inverted-file) index — coarse k-means + nprobe cluster scan.
 
-TPU-native analog of the reference's IVF (reference: index/IvfIndex.java —
+Analog of the reference's IVF (reference: index/IvfIndex.java —
 nClusters=100 capped at N/10, nProbes=10 :41-57, brute-force fallback when
 untrained/small :215-225, k-means++ build :335-399; native/index/IVFIndex.cpp
 — flat k-means train :21-81, partial_sort centroids + scan nProbes lists
@@ -9,7 +9,7 @@ untrained/small :215-225, k-means++ build :335-399; native/index/IVFIndex.cpp
 Design (SURVEY.md §7.1.4): cluster membership is a padded [nlist, maxlen]
 slot-id table; search = one query x centroid matmul for probe selection, then
 a gather of the probed clusters' members and a batched exact distance over the
-gathered block — two MXU matmuls per batch instead of per-element scans.
+gathered block — two matmuls per batch instead of per-element scans.
 """
 
 from __future__ import annotations

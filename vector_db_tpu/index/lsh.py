@@ -1,12 +1,12 @@
 """LSH index — random-projection hashing with exact re-rank.
 
-TPU-native analog of the reference's LSH (reference: index/LshIndex.java —
+Analog of the reference's LSH (reference: index/LshIndex.java —
 10 hash fns x 5 tables, bucket width 4 :40-42, quantized-projection hash
 :115-135, candidate-union + exact re-rank search :245-281, buildIndex
 regenerates hash fns :303-339; native/index/LSHIndex.cpp — 10 tables x 20
 sign bits, collision counting :78-117).
 
-TPU-first design: codes for all vectors live as a device matrix
+Array design: codes for all vectors live as a device matrix
 ``bucket_ids [T, cap] int32``; search compares the query's codes against it
 full-N (memory-bound integer ops instead of host-side hash maps) and exact
 re-ranks the collision set — the reference's candidate-union + re-rank as
@@ -108,12 +108,12 @@ def _lsh_search(
 
     Streams the corpus in ``block_n``-row tiles: per tile the collision test
     is a [T, Q, block] integer compare reduced over tables, the re-rank is one
-    MXU distance matmul masked to colliding rows, and survivors merge into the
+    distance matmul masked to colliding rows, and survivors merge into the
     running top-k.  Peak memory is O(Q * block_n) — never the full [T, Q, N]
     hit tensor or [Q, N] distance matrix (at 100k x 1024 queries those are
-    ~1 GB + 400 MB per dispatch).  On TPU the masked stream beats candidate
-    gathering (gathers lose ~100x to streams — measured), so pruning here
-    means *masking*, exactly like the valid-slot tombstone mask.
+    ~1 GB + 400 MB per dispatch).  Pruning here means *masking* a dense
+    stream rather than gathering candidates, exactly like the valid-slot
+    tombstone mask.
     """
     if radius > 0:
         qb = _sign_codes(queries, planes)             # [T, Q]

@@ -1,11 +1,11 @@
 """Flat Product-Quantization index with exhaustive ADC scan.
 
-TPU-native analog of the reference's PQ index (reference:
+Analog of the reference's PQ index (reference:
 index/PqIndex.java — 8 subvectors x 256 clusters :42-44, train in buildIndex
 :347-487, distance-table search :250-330; native/index/PQIndex.{h,cpp} —
 blocked 8-way-unrolled ADC scan :165-198, parallel encode :215-256).
 
-Here: training is one vmapped k-means over all subspaces on the MXU, encode is
+Here: training is one vmapped k-means over all subspaces as matmuls, encode is
 one batched argmin matmul, and search is a blocked ADC scan with fused top-k.
 An optional exact re-rank (``refine_k``) over the raw store lifts recall above
 the reference's pure-ADC ranking.
@@ -49,9 +49,9 @@ class PqIndex(VectorIndex):
         self.codes = jnp.zeros((self.store.capacity, sub), jnp.uint8)
         self.trained = False
         self.seed = 42  # fixed seed everywhere (SURVEY.md §4.5)
-        # ADC backend seam (the SIMDDispatcher analog): "decode" = Pallas
-        # decode kernel + MXU matmul (fast path, ~100x the table scans);
-        # "gather"/"onehot" = blocked distance-table scans (oracles)
+        # ADC backend seam (the SIMDDispatcher analog): "decode" = PQ
+        # decode + one matmul (the fast path); "gather"/"onehot" = blocked
+        # distance-table scans (oracles)
         self.adc_impl = "decode"
         self._fast_cache: Optional[tuple] = None
         # variance-balancing dimension permutation (train-time,
@@ -127,9 +127,7 @@ class PqIndex(VectorIndex):
         if self._fast_cache is None:
             ct = jnp.transpose(self.codes, (1, 0))
             cbt = adc.codebooks_to_cbt(self.codebooks)
-            from ..ops.pallas_kernels import pq_decode_recon_t
-
-            r32 = pq_decode_recon_t(ct, cbt).astype(jnp.float32)
+            r32 = adc.pq_decode_recon_t(ct, cbt).astype(jnp.float32)
             self._fast_cache = (ct, cbt, jnp.sum(r32 * r32, axis=0))
         return self._fast_cache
 

@@ -1,11 +1,13 @@
-"""Device compute kernels — the MXU/VPU floor of the framework.
+"""Device compute — the matmul and selection floor of the framework.
 
 distance: pairwise metrics, blocked/full-row kNN scans (SURVEY C4-C6 analog)
 topk:     masked top-k, merges, dedup (the array heap replacement)
 kmeans:   on-device Lloyd / k-means++ (PQ + IVF training)
 adc:      PQ encode, distance tables, blocked ADC scans (SURVEY C7 analog)
 hnsw_graph: padded-adjacency HNSW engine (SURVEY C8-C9 analog)
-pallas_kernels: fused scan kernel (large-N mode)
+pool_scan: strided-bucket pool scans (large-N mode; the Triton int8 kernel)
+ivf_scan: the cluster-pruned scan tier
+pca:      the PCA-proxy first stage
 """
 
 from .distance import (

@@ -1,13 +1,13 @@
 """ADC (asymmetric distance computation) kernels for Product Quantization.
 
-TPU-native replacement for the reference's ADC stack (reference:
+Replacement for the reference's ADC stack (reference:
 native/compute/ADCUtils.cpp:11-147 AVX2 lookup-table accumulation;
 index/PqIndex.java:306-330 distance-table build; :273-293 full scan;
 index/HnswPqIndex.java:371-386 computePQDistance).
 
 Design (SURVEY.md §7.0): the per-query distance table is a small matmul; the
-code scan streams the HBM-resident uint8 code matrix in blocks and reduces
-either by XLA gather or by a one-hot matmul on the MXU (both provided — the
+code scan streams the device-resident uint8 code matrix in blocks and
+reduces either by XLA gather or by a one-hot matmul (both provided — the
 kernel-provider seam, selectable per call; the scan is memory-bound on the
 [N, S] code bytes so both are near speed-of-light for realistic shapes).
 """
@@ -19,6 +19,8 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
+
+from .distance import SCAN_DTYPE, scan_einsum
 
 Array = jax.Array
 
@@ -78,7 +80,7 @@ def _adc_block_gather(tables: Array, codes_blk: Array) -> Array:
 
 
 def _adc_block_onehot(tables: Array, codes_blk: Array) -> Array:
-    """Distances for one code block via one-hot matmul on the MXU.
+    """Distances for one code block via one one-hot matmul.
     tables [Q,S,K], codes [B,S] -> [Q, B]."""
     q_n, s, k = tables.shape
     b = codes_blk.shape[0]
@@ -99,7 +101,7 @@ def adc_scan_topk(
     block_n: int = 4096,
     impl: str = "gather",
 ) -> tuple[Array, Array]:
-    """Exhaustive ADC scan with running top-k (the TPU answer to the
+    """Exhaustive ADC scan with running top-k (the batched answer to the
     reference's 8-way-unrolled blocked scan, PQIndex.cpp:165-198).
 
     tables: [Q, S, K]; codes: [N, S] uint8; valid: [N] bool.
@@ -148,10 +150,24 @@ def adc_distances(tables: Array, codes: Array) -> Array:
 # fast memory-bound mode: decode-kernel scan + unranked pool + exact refine
 # ---------------------------------------------------------------------------
 
-def _scan_dtype():
-    # the CPU backend (tests / interpret mode) lacks BF16xBF16=F32 dots;
-    # TPU uses bf16 inputs with f32 accumulation on the MXU
-    return jnp.float32 if jax.default_backend() == "cpu" else jnp.bfloat16
+@jax.jit
+def pq_decode_recon_t(codes_t: Array, cbt: Array) -> Array:
+    """Decode PQ codes to reconstructed vectors, transposed.
+
+    codes_t: [S, N] integer codes; cbt: [S*sd, K] f32 with
+    cbt[s*sd + j, c] = codebooks[s, c, j].  Returns reconT [S*sd, N] bf16
+    with reconT[s*sd + j, n] = codebooks[s, codes[n, s], j]: one gather
+    from the table, fused with the bf16 convert.
+
+    ADC distance EQUALS the exact distance to the reconstruction, so the
+    decode is query-independent: decode once, then one matmul scores every
+    query against it (the reference's per-query AVX2 table lookups,
+    native/compute/ADCUtils.cpp:21-134, become O(N*d) gathers).
+    """
+    s = codes_t.shape[0]
+    sd = cbt.shape[0] // s
+    idx = jnp.repeat(codes_t.astype(jnp.int32), sd, axis=0)       # [d, N]
+    return jnp.take_along_axis(cbt, idx, axis=1).astype(jnp.bfloat16)
 
 
 def codebooks_to_cbt(codebooks: Array) -> Array:
@@ -170,8 +186,8 @@ def balanced_subspace_perm(variances, num_subspaces: int):
     free capacity), equalising per-subspace variance.  L2 is permutation-
     invariant, so quantized distances are unchanged in meaning — only the
     cells get uniformly tighter.  (The cheap, deterministic cousin of OPQ's
-    learned rotation; measured on a (i+1)^-1 power-law spectrum at 512d:
-    Recall@10 at pool 781 rises 71% -> see BENCH_REPORT.)
+    learned rotation; tests/test_adc_fast.py checks the recall gain on a
+    power-law spectrum.)
 
     Returns perm [d] int — position j of the permuted vector takes original
     dim perm[j]; subspace s owns positions [s*sd, (s+1)*sd).
@@ -223,17 +239,16 @@ def adc_fast_search(
 ) -> tuple[Array, Array]:
     """The fast codes-only scoring pipeline, ONE device program:
 
-      1. decode codes -> reconstructed vectors (Pallas dynamic_gather kernel;
-         ADC distance == exact distance to the reconstruction, so the scan
-         below is *exactly* the ADC scan at MXU speed)
+      1. decode codes -> reconstructed vectors (`pq_decode_recon_t`, one
+         gather; ADC distance == exact distance to the reconstruction, so
+         the scan below is *exactly* the ADC scan, as one matmul)
       2. one [Q, d] x [d, N] bf16 matmul -> quantized distances
       3. UNRANKED candidate pool: the best `winners` per `bucket` lanes
          (a reshape-min, one pass) — no giant top-R sort.  A ranked pool is
          unnecessary: the exact re-rank orders everything that matters, so
          selection only has to *contain* the true neighbors.  This is what
-         makes the stage cheap: jax.lax.approx_max_k at R=2048..8192 costs
-         48..87 ms on this chip (PartialReduce degenerates toward a full
-         sort as k grows), while the reshape-min is ~1 ms.
+         makes the stage cheap: a ranked select at R=2048..8192 is a sort
+         of the [Q, N] distances, while the reshape-min is one pass.
       4. blocked exact re-rank of the pool (raw vectors touched ONLY here,
          like the reference's refine, HnswPqIndex.java:647-664).
 
@@ -260,7 +275,7 @@ def adc_fast_search(
     q_scan = normalize_rows(queries) if metric == "cosine" else queries
     if perm is not None:
         q_scan = q_scan[:, perm]
-    qb = q_scan.astype(_scan_dtype())
+    qb = q_scan.astype(SCAN_DTYPE)
     # validity rides in the norms: +inf at dead slots (saves a [Q, N] where)
     masked_norms = code_norms_from_codes(codes_t, cbt, valid, code_norms)
 
@@ -268,8 +283,7 @@ def adc_fast_search(
         if pool_mode == "approx" and select_r > 0:
             # the approx pool is already RANKED, so a separate narrowing
             # pass would be redundant work: ask approx_max_k for the
-            # top-select_r directly (measured: approx r=390 + select->128
-            # costs 15.1 ms where approx r=128 alone costs 9.2 at 100k)
+            # top-select_r directly
             bucket = max(1, -(-n * winners // select_r))
         pool_vals, pool = _score_pool_chunk(qb, codes_t, cbt, masked_norms,
                                             bucket, winners, pool_mode)
@@ -322,8 +336,8 @@ def adc_fast_search(
     if 0 < select_r < pool.shape[1]:
         # narrow the wide cheap pool with a tiny ranked select before the
         # refine gathers (approx_max_k over the pool VALUES — [Q, W] is
-        # hundreds of times smaller than [Q, N], so this costs ~1 ms where
-        # ranked selection over the full distances costs 20-90 ms)
+        # hundreds of times smaller than [Q, N], so this select is far
+        # cheaper than ranked selection over the full distances)
         pv = jnp.where(pool >= 0, pool_vals, jnp.inf)
         _, sel = jax.lax.approx_max_k(-pv, select_r, recall_target=0.99)
         pool = jnp.take_along_axis(pool, sel, axis=1)
@@ -369,13 +383,13 @@ def adc_decode_topk(
 
     This replaces the gather/one-hot table scans whenever ranked quantized
     distances are wanted directly (flat PQ search): same distances as
-    `adc_scan_topk` up to bf16 rounding, at MXU speed instead of gather
-    speed (measured ~100x on one v5e chip at 512d x 100k).
+    `adc_scan_topk` up to bf16 rounding, as one matmul instead of per-code
+    table gathers.
     """
     masked = code_norms_from_codes(codes_t, cbt, valid, code_norms)
     if perm is not None:
         queries = queries[:, perm]
-    cross = _decode_cross(queries.astype(_scan_dtype()), codes_t, cbt)
+    cross = _decode_cross(queries.astype(SCAN_DTYPE), codes_t, cbt)
     q_norms = jnp.sum(queries * queries, axis=1)
     dist = q_norms[:, None] + masked[None, :] - 2.0 * cross
     neg, idx = jax.lax.approx_max_k(-dist, k, recall_target=recall_target)
@@ -391,34 +405,17 @@ def code_norms_from_codes(
     cached `code_norms` (no inf folding) to skip the decode pass — the index
     layer caches it per encode generation (the C2 norms-cache analog)."""
     if code_norms is None:
-        from .pallas_kernels import pq_decode_recon_t
-
         r32 = pq_decode_recon_t(codes_t, cbt).astype(jnp.float32)
         code_norms = jnp.sum(r32 * r32, axis=0)
     return jnp.where(valid, code_norms, jnp.inf)
 
 
 def _decode_cross(qb: Array, codes_t: Array, cbt: Array) -> Array:
-    """q . reconstruction cross terms [Q, n] f32 via the decode kernel +
-    one bf16 MXU matmul.
-
-    Negative result worth keeping (measured, one v5e chip, 512d x 100k): a
-    pair-packed decode variant (two bf16 dims per f32 word -> HALF the
-    dynamic_gather rows, query side contracts [Q, d/2, 2] against the pair
-    view) ran SLOWER (3.26 vs 2.88 ms) — the decode kernel is bound by
-    per-chunk fixed costs, not gather-row count.  What DOES matter is lane
-    alignment of n: a [:, :n] slice to a non-multiple-of-128 n forces an
-    unaligned relayout of the whole [d, n] reconstruction and slows every
-    downstream op (~+1.6 ms end to end); the index layer always passes its
-    128-aligned capacity, so the fast path is the default in practice.
-    """
-    from .pallas_kernels import pq_decode_recon_t
-
+    """q . reconstruction cross terms [Q, n] f32: the PQ decode + one
+    matmul with bf16 operands and f32 accumulation (`scan_einsum`).  The
+    index layer passes its 128-aligned capacity as n."""
     recon_t = pq_decode_recon_t(codes_t, cbt)                   # [d, n] bf16
-    return jax.lax.dot_general(
-        qb, recon_t.astype(qb.dtype), (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
+    return scan_einsum("qd,dn->qn", qb, recon_t)
 
 
 def _score_pool_chunk(
@@ -428,7 +425,7 @@ def _score_pool_chunk(
     """Score one corpus (chunk) from its codes and return the UNRANKED
     candidate pool of local slot indices (-1 padded).
 
-    Decode kernel -> one bf16 matmul -> pool selection:
+    PQ decode -> one bf16 matmul -> pool selection:
 
       * pool_mode="bucket": best `winners` per STRIDED bucket (slot i joins
         bucket i % nb), one reshape-argmin pass, pool = winners*ceil(n/
@@ -440,23 +437,14 @@ def _score_pool_chunk(
         so this mode fits corpora where true neighbors have LOW quantized
         rank (i.e. anything with structure).
       * pool_mode="approx": jax.lax.approx_max_k with k = winners*ceil(n/
-        bucket) — a RANKED top-R.  ~50-90 ms at R>=2048 on one v5e chip
-        (PartialReduce degenerates toward a sort as k grows) but it keeps
-        deep-rank candidates, which isotropic (structureless) corpora need.
+        bucket) — a RANKED top-R (an exact sort-based top-k on the GPU and
+        the CPU; slower than the bucket pass) that keeps deep-rank
+        candidates, which isotropic (structureless) corpora need.
     """
-    from .pallas_kernels import pq_decode_recon_t
-
+    if pool_mode not in ("bucket", "approx"):
+        raise ValueError(f"pool_mode={pool_mode!r} (bucket | approx)")
     q_n = qb.shape[0]
     n = codes_t.shape[1]
-    if pool_mode == "fused":
-        # one-kernel path: decode + matmul + bucket-min fused in VMEM (the
-        # [Q, n] distances and [d, n] reconstruction never touch HBM)
-        from .pallas_kernels import fused_adc_pool
-
-        nb_f = -(-n // bucket)
-        vals, idx = fused_adc_pool(qb.astype(jnp.float32), codes_t, cbt,
-                                   masked_norms, winners * nb_f)
-        return vals, idx
     cross = _decode_cross(qb, codes_t, cbt)                     # [Q, n]
     dist = masked_norms[None, :] - 2.0 * cross  # + ||q||^2 == const per row
 

@@ -1,10 +1,11 @@
-"""Pairwise distance kernels — the MXU compute floor of the framework.
+"""Pairwise distance kernels — the matmul floor of the framework.
 
-TPU-native replacement for the reference's SIMD/BLAS distance stack
+Replacement for the reference's SIMD/BLAS distance stack
 (reference: native/compute/DistanceAVX2.cpp:9-89, DistanceScalar.cpp:7-38,
 BatchDistance.cpp:20-147).  The reference computes batched L2 via the
 ``||q||^2 + ||v||^2 - 2 q.v`` identity with cblas_sgemm; here the same identity
-is expressed as a blocked query x base matmul that XLA tiles onto the MXU,
+is expressed as a blocked query x base matmul that XLA hands to the GPU's
+matrix units,
 with norms precomputed once per corpus (reference: native/core/VectorStore.cpp:98-104
 caches squared norms the same way).
 
@@ -27,6 +28,33 @@ Array = jax.Array
 METRIC_L2 = "l2"
 METRIC_COSINE = "cosine"
 VALID_METRICS = (METRIC_L2, METRIC_COSINE)
+
+#: operand dtype of the quantized-row and packed-row scans on every backend:
+#: bf16 operands, f32 accumulation (see `scan_einsum`)
+SCAN_DTYPE = jnp.bfloat16
+
+
+def scan_einsum(spec: str, a: Array, b: Array, dtype=SCAN_DTYPE) -> Array:
+    """``einsum(spec, a, b)`` with ``dtype`` operands and f32 accumulation.
+
+    For bf16 operands XLA's CPU runtime lacks the bf16 x bf16 -> f32 dot for
+    some operand layouts, so on the CPU the same bf16-rounded values are
+    multiplied in f32.  A product of two bf16 values is exact in f32, so
+    both forms compute the same sums, only in another order: the CPU tests
+    see the scans' bf16 numerics."""
+    a, b = a.astype(dtype), b.astype(dtype)
+    if dtype == jnp.float32:
+        return jnp.einsum(spec, a, b, preferred_element_type=jnp.float32)
+
+    def native(a, b):
+        return jnp.einsum(spec, a, b, preferred_element_type=jnp.float32)
+
+    def widened(a, b):
+        return jnp.einsum(spec, a.astype(jnp.float32), b.astype(jnp.float32),
+                          precision=jax.lax.Precision.HIGHEST,
+                          preferred_element_type=jnp.float32)
+
+    return jax.lax.platform_dependent(a, b, cpu=widened, default=native)
 
 
 def sq_norms(x: Array) -> Array:
@@ -63,13 +91,13 @@ def pairwise_sq_l2(
     """Full pairwise squared-L2 distance matrix [Q, N] via the norm identity.
 
     This is the reference's BatchDistance::batchEuclideanDistanceMultiQuery
-    (native/compute/BatchDistance.cpp:121-147) as one MXU matmul.
+    (native/compute/BatchDistance.cpp:121-147) as one matmul.
     """
     if q_norms is None:
         q_norms = sq_norms(q)
     if b_norms is None:
         b_norms = sq_norms(base)
-    # -2 Q B^T on the MXU; keep f32 accumulation for exactness (GT oracle path).
+    # -2 Q B^T; keep f32 accumulation for exactness (GT oracle path).
     cross = jax.lax.dot_general(
         q, base, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32
     )
@@ -129,9 +157,9 @@ def blocked_knn(
 ) -> tuple[Array, Array]:
     """Exact k-NN: blocked scan over the base with a running top-k merge.
 
-    Streams the base matrix through the MXU in blocks of ``block_n`` rows so an
-    arbitrarily large corpus never materialises a [Q, N] matrix (the TPU analog
-    of the reference's blocked exhaustive scans, native/index/PQIndex.cpp:165-198).
+    Streams the base matrix in blocks of ``block_n`` rows so an arbitrarily
+    large corpus never materialises a [Q, N] matrix (the analog of the
+    reference's blocked exhaustive scans, native/index/PQIndex.cpp:165-198).
 
     Args:
       q:      [Q, d] float32 queries.
@@ -196,13 +224,13 @@ def blocked_knn_fast(
     block_n: int = 32768,
     recall_target: float = 0.99,
 ) -> tuple[Array, Array]:
-    """Exact-scan kNN with per-block `approx_max_k` (TPU PartialReduce).
+    """Exact-scan kNN with per-block `approx_max_k`.
 
-    Same contract as :func:`blocked_knn` but ~2-3x faster on TPU: each base
-    block is reduced with the hardware-friendly approximate top-k, and the
-    per-block winners are merged exactly.  Measured at 512d/100k on one
-    v5e chip: 209k QPS at 99.87% Recall@10 (vs 126k QPS exact, 71k QPS for
-    the plain blocked scan).  Set recall_target=1.0 for the exact reduction.
+    Same contract as :func:`blocked_knn`: each base block is reduced with
+    `approx_max_k` and the per-block winners are merged exactly.  On the GPU
+    and the CPU `approx_max_k` lowers as an exact sort-based top-k, so this
+    is exact there; its cost on the H100 is not measured (ROADMAP A3).  Set
+    recall_target=1.0 for the exact reduction everywhere.
     """
     qn, n = q.shape[0], base.shape[0]
     if b_norms is None:
@@ -210,11 +238,9 @@ def blocked_knn_fast(
     q_norms = sq_norms(q)
 
     # full-row path: one distance matmul + ONE approx_max_k over the whole
-    # row beats blocked scanning whenever the [Q, N] matrix fits comfortably
-    # (measured at 512d/100k/Q=1024: 1.66 ms vs 5.5 ms blocked — the per-block
-    # reductions + merges dominate the blocked variant)
-    # (full-row exact top_k is pathological — 161 ms — so only the approx
-    # reduction takes this path; exact requests use the blocked scan below)
+    # row while the [Q, N] matrix fits comfortably (no per-block reductions
+    # and merges); exact requests use the blocked scan below.  Where the
+    # crossover lies on the H100 is not measured (ROADMAP A5)
     if recall_target < 1.0 and qn * n * 4 <= 512 * 1024 * 1024:
         d = pairwise_dist(q, base, metric, q_norms, b_norms)
         d = jnp.where(valid[None, :], d, jnp.inf)
@@ -273,11 +299,11 @@ def bf16_pool_scan(
 ) -> Array:
     """Candidate-pool selection over a bf16 [Q, block] score buffer.
 
-    The exact f32 scan is HBM-traffic-bound past ~100k rows, not MXU-bound:
-    the [Q, N] distance buffer cannot fuse into ``approx_max_k`` (an XLA
-    custom call), so it round-trips HBM in f32 — at 1M x 512 x Q=1024 that
-    is 8 GB of the ~12 GB total traffic.  Writing the SELECTION scores in
-    bf16 halves it.  Two precision moves make bf16 ranking safe:
+    The [Q, N] distance buffer of the exact f32 scan does not fuse into the
+    top-k selection, so it round-trips device memory in f32 — at
+    1M x 512 x Q=1024 that is 8 GB of the ~12 GB total traffic.  Writing
+    the SELECTION scores in bf16 halves it.  Two precision moves make bf16
+    ranking safe:
 
       * every large common-mode component is cancelled IN F32 before the
         bf16 cast.  On a mean-offset corpus (real embedding spaces: v =
@@ -334,9 +360,8 @@ def bf16_pool_scan(
     # absolute error ~|c||v| 2^-9 sqrt(d), which drowns the near-neighbor
     # signal once the common mode is large (the exact case this centering
     # exists for); the hi/lo split drops it ~2^-8 x for one extra row.
-    # Rows pad to a multiple of 8 so the [Q+, N] cross matrix keeps full
-    # sublanes and the cross[:qn] prefix slice is relayout-free (a ragged
-    # Q+2 row count measured +1.2 ms at [1024, 100k])
+    # Rows pad to a multiple of 8 so the [Q+, N] cross matrix keeps an
+    # aligned row count and the cross[:qn] prefix slice stays cheap
     c_hi = c.astype(jnp.bfloat16).astype(jnp.float32)
     extra = jnp.zeros(((-qn - 2) % 8, q.shape[1]), jnp.float32)
     qaug = jnp.concatenate(
@@ -415,7 +440,7 @@ def blocked_rerank(
     running top-k merge — never materialises the full [Q, R, d] gather
     (at R=8192, Q=1024, d=512 that is a 16 GB allocation).
 
-    The TPU analog of the reference flagship's exact re-rank stage
+    The analog of the reference flagship's exact re-rank stage
     (HnswPqIndex.java:647-664); -1 candidates are ignored.
     Returns (dists [Q, k], slots [Q, k]) ascending.
     """
@@ -457,10 +482,10 @@ def blocked_rerank(
 def pack_bf16_rows(base: Array) -> Array:
     """[N, d] f32 -> [N, d/2] f32-TYPED array holding bf16 pairs.
 
-    bf16-typed gathers are SLOWER than f32 on this chip (measured 45 vs
-    110 GB/s), so the bf16 refine store is bit-packed into f32 words: the
-    gather moves half the bytes at full f32 efficiency and the block
-    bitcasts back to bf16 for the distance math.
+    The bf16 refine store is bit-packed into f32 words: the gather moves
+    half the bytes of f32 rows as f32-typed words, and the block bitcasts
+    back to bf16 for the distance math.  (The layout was chosen for an
+    earlier accelerator's gather; on the H100 it is not measured.)
     """
     n, d = base.shape
     b16 = base.astype(jnp.bfloat16)
@@ -489,8 +514,6 @@ def blocked_rerank_packed(
         cand = jnp.pad(cand, ((0, 0), (0, r_pad)), constant_values=-1)
     n_blocks = (r + r_pad) // rb
     q_norms = jnp.sum(q * q, axis=1)
-    dt = jnp.float32 if jax.default_backend() == "cpu" else jnp.bfloat16
-    qc = q.astype(dt)
 
     def body(carry, blk):
         top_d, top_i = carry
@@ -500,8 +523,7 @@ def blocked_rerank_packed(
         v16 = jax.lax.bitcast_convert_type(vp, jnp.bfloat16).reshape(
             q_n, rb, d
         )
-        dots = jnp.einsum("qd,qrd->qr", qc, v16.astype(dt),
-                          preferred_element_type=jnp.float32)
+        dots = scan_einsum("qd,qrd->qr", q, v16)
         v32 = v16.astype(jnp.float32)
         vn = jnp.sum(v32 * v32, axis=2)
         if metric == METRIC_L2:
@@ -571,11 +593,10 @@ def pack_int8_residual(base: Array, packed: Array,
     range is ~scale/2, so its own scale is ~1/254 of the primary's:
     combined per-element error ~2e-5 of max|v|) at HALF the bytes of f32
     — and, unlike a single bf16 row store at the SAME total bytes, the
-    first level stays s8 for the fused MXU scan kernels.  Measured: with
-    a perfectly-contained candidate pool the int8 refine scores 99.3%
-    Recall@10 where int8+residual is EXACT (tests/benchmarks at 50k-200k
-    x 512); this is the compressed tier's answer to the refine-precision
-    recall ceiling (BENCH_REPORT A6: 95.5% at 10M).
+    first level stays s8 for the int8 pool scans.  Measured: with a
+    perfectly-contained candidate pool the int8 refine scores 99.3%
+    Recall@10 where int8+residual is EXACT (at 50k-200k x 512); this is
+    the compressed tier's answer to the refine-precision recall ceiling.
     """
     resid = base - unpack_int8_rows(packed, scales)
     return pack_int8_rows(resid)
@@ -627,10 +648,7 @@ def blocked_rerank_int8(
         cand = jnp.pad(cand, ((0, 0), (0, r_pad)), constant_values=-1)
     n_blocks = (r + r_pad) // rb
     q_norms = jnp.sum(q * q, axis=1)
-    dt = jnp.float32 if jax.default_backend() == "cpu" else jnp.bfloat16
-    if resid is not None:
-        dt = jnp.float32
-    qc = q.astype(dt)
+    dt = SCAN_DTYPE if resid is None else jnp.float32
 
     def body(carry, blk):
         top_d, top_i = carry
@@ -639,16 +657,12 @@ def blocked_rerank_int8(
         vp = packed[safe]                                  # [Q, rb, d/4] i32
         v8 = jax.lax.bitcast_convert_type(vp, jnp.int8).reshape(q_n, rb, d)
         sc = scales[safe]                                  # [Q, rb]
-        vq = v8.astype(dt)
-        dots = jnp.einsum("qd,qrd->qr", qc, vq,
-                          preferred_element_type=jnp.float32) * sc
+        dots = scan_einsum("qd,qrd->qr", q, v8, dt) * sc
         if resid is not None:
             r8 = jax.lax.bitcast_convert_type(
                 resid[safe], jnp.int8).reshape(q_n, rb, d)
             rsc = rscales[safe]                            # [Q, rb]
-            dots = dots + jnp.einsum(
-                "qd,qrd->qr", qc, r8.astype(dt),
-                preferred_element_type=jnp.float32) * rsc
+            dots = dots + scan_einsum("qd,qrd->qr", q, r8, dt) * rsc
         if b_norms is not None and metric == METRIC_L2:
             vn = b_norms[safe]
         elif resid is not None:
@@ -712,13 +726,10 @@ def blocked_knn_int8(
     qn, n = q.shape[0], packed.shape[0]
     d = packed.shape[1] * 4
     q_norms = sq_norms(q)
-    dt = jnp.float32 if jax.default_backend() == "cpu" else jnp.bfloat16
-    if resid is not None:
-        # the residual's ~4e-5 precision needs f32 dots (bf16 query
-        # rounding is 1e-4 — see blocked_rerank_int8); this mode trades
-        # scan rate for an effectively exact exhaustive scorer
-        dt = jnp.float32
-    qc = q.astype(dt)
+    # the residual's ~4e-5 precision needs f32 dots (bf16 query rounding
+    # is 1e-4 — see blocked_rerank_int8); this mode trades scan rate for an
+    # effectively exact exhaustive scorer
+    dt = SCAN_DTYPE if resid is None else jnp.float32
 
     # clamped ragged last chunk, not padding: jnp.pad would transiently copy
     # the whole packed store (5+ GB at 10M) — the final chunk re-slices
@@ -745,20 +756,14 @@ def blocked_knn_int8(
         v8 = jax.lax.bitcast_convert_type(p_blk, jnp.int8).reshape(
             block_n, d
         )
-        dots = jax.lax.dot_general(
-            qc, v8.astype(dt), (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        ) * s_blk[None, :]
+        dots = scan_einsum("qd,nd->qn", q, v8, dt) * s_blk[None, :]
         if resid is not None:
             rp_blk = jax.lax.dynamic_slice_in_dim(resid, start, block_n,
                                                   axis=0)
             rs_blk = jax.lax.dynamic_slice_in_dim(rscales, start, block_n)
             r8 = jax.lax.bitcast_convert_type(rp_blk, jnp.int8).reshape(
                 block_n, d)
-            dots = dots + jax.lax.dot_general(
-                qc, r8.astype(dt), (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            ) * rs_blk[None, :]
+            dots = dots + scan_einsum("qd,nd->qn", q, r8, dt) * rs_blk[None, :]
         if b_norms is not None and metric == METRIC_L2:
             vn = jax.lax.dynamic_slice_in_dim(b_norms, start, block_n)
         elif resid is not None:

@@ -1,11 +1,11 @@
 """On-device k-means — the training primitive behind PQ, IVF and HNSW+PQ.
 
-TPU-native replacement for the reference's scalar k-means loops (reference:
+Replacement for the reference's scalar k-means loops (reference:
 index/HnswPqIndex.java:194-293 per-subspace k-means with k-means++ seeding,
 seed 42+subspace; native/index/HNSWPQIndex.cpp:127-244; IVFIndex.cpp:21-81).
 
-Design (SURVEY.md §7.0): assignment = argmin over a distance matmul on the
-MXU; update = one-hot matmul segment-sum; the pqM subspaces train together
+Design (SURVEY.md §7.0): assignment = argmin over a distance matmul;
+update = one-hot matmul segment-sum; the pqM subspaces train together
 under one vmap.  Determinism comes from fixed jax.random keys, mirroring the
 reference's fixed seeds (SURVEY.md §4.5).
 """

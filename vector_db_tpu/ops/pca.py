@@ -2,22 +2,22 @@
 
 Multi-stage re-rank design (the pattern of pHNSW / AQR-style pipelines —
 PAPERS.md): scan a [p << d]-dimensional PCA projection of the corpus with
-one tiny MXU matmul, keep the ranked top-R by proxy distance, then exact-
+one tiny matmul, keep the ranked top-R by proxy distance, then exact-
 re-rank only those R rows.  The proxy is 64 B/vector at p=32 (bf16) — the
 same index-memory class as 32x PQ codes — and on decaying-spectrum corpora
 its top-R containment of the true top-10 is measured at 97.0% (p=32,
 R=256) / 99.05% (p=64, R=128) at 512d x 100k, so the exact refine restores
 near-perfect recall.
 
-Compared to the ADC decode-kernel scan (ops/adc.adc_fast_search), the proxy
-scan needs no decode pass: scoring is ONE [Q, p] x [p, N] matmul, so the
-stage cost scales with p/d (~16x fewer FLOPs at p=32, d=512) and no
-VPU-gather decode.  Beyond ~6 GB of [Q, N] distances the scan switches to
+Compared to the ADC decode scan (ops/adc.adc_fast_search), the proxy scan
+needs no decode pass: scoring is ONE [Q, p] x [p, N] matmul, so the stage
+cost scales with p/d (~16x fewer FLOPs at p=32, d=512) and there is no
+gather.  Beyond ~6 GB of [Q, N] distances the scan switches to
 a chunked pool + one final select (see pca_proxy_search), so 10M+ corpora
 never materialise [Q, N].
 The tradeoff is distribution-dependence: truncated PCA needs a decaying
 eigenspectrum (real embeddings have one; isotropic noise does not — there
-PQ and PCA both lose, see BENCH_REPORT A4).
+PQ and PCA both lose).
 """
 
 from __future__ import annotations
@@ -93,10 +93,9 @@ def pca_proxy_search(
     correct; with raw (varied-norm) projections it is not (measured: 55%
     vs 99% Recall@10).
 
-    Selection strategy (measured at 1M x 512, p=64, R=256, one v5e chip):
-    a running blocked merge (blocked_knn_fast) costs 75 ms — per-block
-    `top_k` at k=256 is the TPU top_k pathology — while one full-row
-    `approx_max_k` over the [Q, N] proxy distances costs 16 ms.  So: one
+    Selection strategy: one full-row selection over the [Q, N] proxy
+    distances rather than a running blocked merge of per-block top-k at
+    k=256 (its cost on the H100 is not measured; see ROADMAP A3).  So: one
     full-row pass while [Q, N] f32 fits comfortably (<= 6 GB), else chunked
     per-chunk approx pools + ONE final ranked select over the concatenated
     winners (the adc_fast large-N pattern; never a per-block top_k merge).
@@ -125,8 +124,8 @@ def pca_proxy_search(
         )
         dist = mn_blk[None, :] - 2.0 * cross     # + ||q_p||^2 == const/row
         # bf16 distances into the selection: the [Q, chunk] buffer is the
-        # scan's dominant HBM traffic (40 GB f32 at 10M — measured 81 ms;
-        # bf16 halves it), and selection only needs proxy-RANKING precision
+        # scan's dominant memory traffic (40 GB f32 at 10M; bf16 halves
+        # it), and selection only needs proxy-RANKING precision
         # — the refine below re-scores everything exactly
         dist = dist.astype(jnp.bfloat16)
         neg, sel = jax.lax.approx_max_k(-dist, min(rk, pt_blk.shape[0]),
@@ -153,9 +152,8 @@ def pca_proxy_search(
              jnp.arange(1, num_chunks, dtype=jnp.int32) * block_n]
         )  # rows below this index were scanned by earlier chunks
         # per-chunk pools keep 4x the expected per-chunk share of the final
-        # top-r (floor 128): approx_max_k's cost grows steeply with k, and a
-        # chunk holding > 4r/C of the global top-r is vanishingly unlikely —
-        # measured at 10M/r=512: per-chunk 512 cost 187 ms vs 256 at ~95 ms
+        # top-r (floor 128): selection cost grows with k, and a chunk
+        # holding > 4r/C of the global top-r is vanishingly unlikely
         r_chunk = min(r, max(128, -(-4 * r // max(num_chunks, 1))))
 
         def one(args):
@@ -180,7 +178,8 @@ def pca_proxy_search(
 
     if int8_base is not None:
         # int8 refine store: the only exact(-ish) stage left when raw f32
-        # cannot be HBM-resident at all (10M x 512 = 20 GB raw; int8 = 5 GB)
+        # cannot be device-resident at all (10M x 512 = 20 GB raw; int8 =
+        # 5 GB)
         out_d, slots = blocked_rerank_int8(queries, int8_base, int8_scales,
                                            pool, k, metric, rb=rerank_block,
                                            b_norms=int8_norms,

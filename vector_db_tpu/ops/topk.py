@@ -1,7 +1,7 @@
 """Masked top-k helpers — the array replacement for the reference's heaps.
 
 The reference keeps `PriorityQueue` beams (index/HnswIndex.java:557-644) and
-`std::partial_sort` result sets (native/index/PQIndex.cpp:200-205).  On TPU the
+`std::partial_sort` result sets (native/index/PQIndex.cpp:200-205).  Here the
 same role is played by fixed-size sorted arrays merged with `jax.lax.top_k`.
 """
 

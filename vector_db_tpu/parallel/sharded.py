@@ -1,19 +1,23 @@
-"""Multi-chip scale-out: corpus sharding over a device mesh.
+"""Multi-device scale-out: corpus sharding over a device mesh.
 
 The reference is explicitly single-node (SURVEY.md §2.3, §5.8 — its only
 parallelism is std::async query fanout, HNSWIndex.cpp:543-571).  The
-TPU-native scale-out axes are:
+scale-out axes are:
 
-  * **corpus sharding** — base vectors / PQ codes split across chips on a
-    1-D mesh axis; each chip computes local top-k over its shard; the
-    per-shard results ride ICI through one all_gather and a tiny merge.
-  * **query sharding (DP)** — queries split across chips, corpus replicated.
+  * **corpus sharding** — base vectors / PQ codes split across devices on
+    a 1-D mesh axis; each device computes local top-k over its shard; the
+    per-shard results meet in one all_gather and a tiny merge.
+  * **query sharding (DP)** — queries split across devices, corpus
+    replicated.
   * **sharded k-means training** — data sharded, centroids replicated;
     per-shard one-hot partial sums reduce with psum (the classic
     data-parallel training step).
 
 Everything is expressed with `shard_map` over a `jax.sharding.Mesh` and
-`jax.lax` collectives — XLA inserts the ICI transfers.
+`jax.lax` collectives; XLA hands the collectives to NCCL on GPUs.  The mesh
+is 1-D, which suits cards joined all to all (four H100s over NVLink).  On
+GPUs each shard's pool scan is the one Triton kernel of ops/pool_scan;
+every other per-shard program is plain XLA.
 """
 
 from __future__ import annotations
@@ -89,7 +93,7 @@ def sharded_knn(mesh: Mesh, k: int, metric: str = "l2"):
         # local -> global slot ids
         shard = jax.lax.axis_index(AXIS)
         idx = idx + shard * base_s.shape[0]
-        # gather per-shard top-k everywhere, merge (rides ICI)
+        # gather per-shard top-k everywhere, merge
         d_all = jax.lax.all_gather(-neg, AXIS)          # [S, Q, k]
         i_all = jax.lax.all_gather(idx, AXIS)           # [S, Q, k]
         s, qn, _ = d_all.shape
@@ -153,8 +157,8 @@ def dp_knn(mesh: Mesh, k: int, metric: str = "l2"):
 
 def sharded_flagship(mesh: Mesh, k: int, refine: int, metric: str = "l2"):
     """Corpus-sharded HNSW+PQ scan path: codes and raw vectors sharded;
-    per-chip ADC top-R (decode kernel + MXU) + local blocked exact re-rank,
-    then one all_gather + merge.
+    per-device ADC top-R (PQ decode + one matmul) + local blocked exact
+    re-rank, then one all_gather + merge.
 
     Returned fn: (q, codebooks, codes [N,S], valid [N], base [N,d],
     ids [N], perm [d]) -> (dists [Q,k], external ids [Q,k]).
@@ -177,7 +181,7 @@ def sharded_flagship(mesh: Mesh, k: int, refine: int, metric: str = "l2"):
                                    rb=min(512, r))
         negl = -negd
         ext = jnp.where(jnp.isfinite(negd), ids_s[jnp.maximum(loc, 0)], -1)
-        # merge shard-local results over ICI
+        # merge shard-local results
         d_all = jax.lax.all_gather(-negl, AXIS)
         e_all = jax.lax.all_gather(ext, AXIS)
         s, qn, kk = d_all.shape
@@ -201,8 +205,8 @@ def sharded_flagship(mesh: Mesh, k: int, refine: int, metric: str = "l2"):
 
 
 def _merge_topk(local_d, local_e, k):
-    """Shared winners-only merge: all_gather per-shard [Q, k'] results over
-    ICI, one top-k.  Merge bandwidth is S*Q*k'*8 bytes — independent of N."""
+    """Shared winners-only merge: all_gather per-shard [Q, k'] results, one
+    top-k.  Merge bandwidth is S*Q*k'*8 bytes — independent of N."""
     d_all = jax.lax.all_gather(local_d, AXIS)
     e_all = jax.lax.all_gather(local_e, AXIS)
     s, qn, kk = d_all.shape
@@ -214,7 +218,7 @@ def _merge_topk(local_d, local_e, k):
 
 
 # --------------------------------------------------------------------------
-# corpus-sharded int8 programs (the compressed >HBM-per-chip tier)
+# corpus-sharded int8 programs (the compressed tier)
 # --------------------------------------------------------------------------
 
 def sharded_knn_int8(mesh: Mesh, k: int, metric: str = "l2",
@@ -222,7 +226,7 @@ def sharded_knn_int8(mesh: Mesh, k: int, metric: str = "l2",
     """Corpus-sharded near-exact scan over int8-packed rows (the multi-chip
     analog of ops/distance.blocked_knn_int8): per chip one dequantizing
     matmul against its shard with write-time-exact norms, then the standard
-    winners-only ICI merge.  Returns GLOBAL slot ids.
+    winners-only merge.  Returns GLOBAL slot ids.
 
     fn: (q [Q,d], packed [N,d/4] i32, scales [N], valid [N], norms [N]
          [, resid [N,d/4] i32, rscales [N]]) -> (dists [Q,k], global idx
@@ -318,10 +322,10 @@ def sharded_cond_raw8(mesh: Mesh, metric: str = "l2"):
 
 def sharded_fused_raw8(mesh: Mesh, k: int, pool: int, w: int,
                        metric: str = "l2"):
-    """Raw-tier corpus-sharded fused s8 x s8 scan: per chip the int8 pool
-    kernel (ops/pallas_kernels.fused_int8_pool) streams that shard's
-    quantized shadow, the exact f32 refine re-scores against the raw
-    shard, and the winners-only ICI merge combines chips.  The multi-chip
+    """Raw-tier corpus-sharded s8 x s8 pool scan: per device the int8 pool
+    scan (ops/pool_scan.int8_pool_scan) streams that shard's quantized
+    shadow, the exact f32 refine re-scores against the raw shard, and the
+    winners-only merge combines devices.  The multi-device
     analog of the raw tier's `search_mode="scan_pallas_int8"` (auto's
     >=700k-rows-per-shard choice on one chip).
 
@@ -331,11 +335,11 @@ def sharded_fused_raw8(mesh: Mesh, k: int, pool: int, w: int,
 
     def local(q, v_s, b8_s, off_s, ssc_s, cvec_s):
         from ..ops.distance import blocked_rerank, normalize_rows
-        from ..ops.pallas_kernels import fused_int8_pool
+        from ..ops.pool_scan import int8_pool_scan
 
         qq = normalize_rows(q) if metric == "cosine" else q
         qc = qq - cvec_s[0][None, :]
-        vals, idx = fused_int8_pool(qc, b8_s, off_s, ssc_s, w)
+        vals, idx = int8_pool_scan(qc, b8_s, off_s, ssc_s, w)
         nv, sel = jax.lax.approx_max_k(-vals, pool, recall_target=0.95)
         cand = jnp.take_along_axis(idx, sel, axis=1)
         cand = jnp.where(jnp.isfinite(nv), cand, -1)
@@ -389,10 +393,9 @@ def sharded_fused_raw8g(mesh: Mesh, k: int, pool: int, w: int,
                         metric: str = "l2"):
     """Integer-epilogue variant of `sharded_fused_raw8` (the multi-chip
     analog of HnswPqConfig.int8_epilogue="global"): per chip the
-    global-scale pool kernel (ops/pallas_kernels.fused_int8g_pool) ranks
-    its shard in raw i32 — 4 VPU ops per [Q, N] element instead of 7 —
-    then the exact f32 refine and the winners-only ICI merge are
-    identical to the per-row route.
+    global-scale pool scan (ops/pool_scan.int8g_pool_scan) ranks its
+    shard in raw i32, then the exact f32 refine and the winners-only merge
+    are identical to the per-row route.
 
     fn: (q [Q,d], base [N,d] f32, base8 [N,d] i8, off [N],
          sv [n_shards], center [S,d]) -> (dists [Q,k], global slots).
@@ -401,11 +404,11 @@ def sharded_fused_raw8g(mesh: Mesh, k: int, pool: int, w: int,
 
     def local(q, v_s, b8_s, off_s, sv_s, cvec_s):
         from ..ops.distance import blocked_rerank, normalize_rows
-        from ..ops.pallas_kernels import fused_int8g_pool
+        from ..ops.pool_scan import int8g_pool_scan
 
         qq = normalize_rows(q) if metric == "cosine" else q
         qc = qq - cvec_s[0][None, :]
-        vals, idx = fused_int8g_pool(qc, b8_s, off_s, sv_s[0], sgn, w)
+        vals, idx = int8g_pool_scan(qc, b8_s, off_s, sv_s[0], sgn, w)
         nv, sel = jax.lax.approx_max_k(-vals, pool, recall_target=0.95)
         cand = jnp.take_along_axis(idx, sel, axis=1)
         cand = jnp.where(jnp.isfinite(nv), cand, -1)
@@ -428,11 +431,11 @@ def sharded_fused_raw8g(mesh: Mesh, k: int, pool: int, w: int,
 
 def sharded_fused_int8(mesh: Mesh, k: int, pool: int, w: int,
                        metric: str = "l2", residual: bool = False):
-    """Corpus-sharded fused s8 x s8 scan over the compressed tier: per chip
-    the Pallas packed-pool kernel (ops/pallas_kernels.fused_packed_pool)
-    streams the shard's own int8 rows entirely in VMEM, a tiny approx
-    select ranks the bucket winners, the int8 refine re-scores with exact
-    write-time norms, and the winners-only ICI merge combines shards.
+    """Corpus-sharded s8 x s8 pool scan over the compressed tier: per
+    device the packed pool scan (ops/pool_scan.packed_pool_scan) streams
+    the shard's own int8 rows, a tiny select ranks the bucket winners, the
+    int8 refine re-scores with exact write-time norms, and the
+    winners-only merge combines shards.
     The multi-chip analog of search_mode="scan_pallas_int8".
 
     fn: (q [Q,d], packed [N,d/4] i32, scales [N], norms [N], off [N],
@@ -447,11 +450,11 @@ def sharded_fused_int8(mesh: Mesh, k: int, pool: int, w: int,
     def local(q, p_s, sc_s, nrm_s, off_s, ssc_s, cvec_s,
               rp_s=None, rsc_s=None):
         from ..ops.distance import blocked_rerank_int8, normalize_rows
-        from ..ops.pallas_kernels import fused_packed_pool
+        from ..ops.pool_scan import packed_pool_scan
 
         qq = normalize_rows(q) if metric == "cosine" else q
         qc = qq - cvec_s[0][None, :]
-        vals, idx = fused_packed_pool(qc, p_s, off_s, ssc_s, w)
+        vals, idx = packed_pool_scan(qc, p_s, off_s, ssc_s, w)
         nv, sel = jax.lax.approx_max_k(-vals, pool, recall_target=0.95)
         cand = jnp.take_along_axis(idx, sel, axis=1)
         cand = jnp.where(jnp.isfinite(nv), cand, -1)
@@ -480,10 +483,9 @@ def sharded_fused_int8(mesh: Mesh, k: int, pool: int, w: int,
 def sharded_flagship_int8(mesh: Mesh, k: int, refine: int,
                           metric: str = "l2", residual: bool = False):
     """Corpus-sharded flagship for the compressed tier: per-chip ADC top-R
-    over the code shard (decode kernel + MXU), then a blocked INT8 refine
-    against the packed row shard — no raw f32 rows exist anywhere — and the
-    winners-only ICI merge.  With 10M compressed rows per chip, an 8-chip
-    slice serves ~80M vectors (docs/SCALING.md §2).
+    over the code shard (PQ decode + one matmul), then a blocked INT8
+    refine against the packed row shard — no raw f32 rows exist anywhere —
+    and the winners-only merge.
 
     fn: (q, codebooks, codes [N,S] u8, valid [N], packed [N,d/4] i32,
          scales [N], norms [N], ids [N], perm [d]) -> (dists [Q,k],
@@ -532,7 +534,7 @@ def sharded_pca_search(mesh: Mesh, k: int, select_r: int,
     """Corpus-sharded PCA-proxy path (ops/pca): proxy rows, raw store and
     ids sharded; mean/basis replicated.  Per chip: query projection (tiny,
     replicated math) -> local proxy top-R (one matmul + approx_max_k) ->
-    local blocked exact refine, then one all_gather + merge over ICI — the
+    local blocked exact refine, then one all_gather + merge — the
     same collective shape as `sharded_flagship` (per-chip [Q, k] results,
     merge bandwidth independent of N).
 
@@ -826,7 +828,7 @@ class ShardedDatabase:
     device_arrays` reassembles the global sharded array without touching
     clean shards).  Training runs the data-parallel subspace k-means above;
     encoding is shard-local.  Searches are the corpus-sharded programs
-    (all_gather top-k merges over ICI).
+    (all_gather top-k merges).
     """
 
     def __init__(self, mesh: Mesh, vectors: np.ndarray | None = None,
@@ -1259,7 +1261,7 @@ class ShardedDatabase:
                          num_centroids: int = 16, iters: int = 10,
                          seed: int = 42) -> int:
         """Streamed sharded ingest — the multi-chip analog of
-        HnswPqIndex.bulk_load_stream (VERDICT r3 #4): ``chunks`` yields
+        HnswPqIndex.bulk_load_stream: ``chunks`` yields
         ``(ids, vectors)`` pairs; each chunk is water-filled across shards
         and written straight into the per-shard device pieces, so with
         ``host_mirror=False`` peak HOST memory is O(chunk) plus the O(cap)
@@ -1417,9 +1419,9 @@ class ShardedDatabase:
                 self._put_field(name)
             self._dirty.clear()
 
-    # auto crossover: above this many live rows per shard the fused s8
-    # kernel beats the exact scan (same threshold + measurements as the
-    # single-chip hnsw_pq._auto_scan_mode — 73.4k vs 53.0k QPS at 1M)
+    # auto crossover: from this many live rows per shard search() takes
+    # the int8 pool scan (the same threshold as the single-device
+    # hnsw_pq._auto_scan_mode; not measured on the H100; see ROADMAP A5)
     fused_threshold = 700_000
 
     # ----------------------------------------------------------- search
@@ -1465,9 +1467,9 @@ class ShardedDatabase:
 
     def _search_fused_impl(self, queries: np.ndarray, k: int, pool: int = 64
                            ) -> tuple[np.ndarray, np.ndarray]:
-        """Multi-chip fused s8 x s8 scan (the sharded analog of
+        """Multi-device s8 x s8 pool scan (the sharded analog of
         search_mode="scan_pallas_int8", auto's >=700k-rows choice on one
-        chip).  Compressed tier: the Pallas packed-pool kernel streams each
+        device).  Compressed tier: the packed pool scan streams each
         shard's OWN int8 rows + int8 refine (sharded_fused_int8).  Raw
         tier: each chip keeps a quantized int8 shadow of its f32 shard and
         refines exactly in f32 (sharded_fused_raw8).  Per-shard
@@ -1490,10 +1492,9 @@ class ShardedDatabase:
                      else fn(self.packed, self.scales, self.norms,
                              self.valid))
             self._cond_cache = cond = (rows, self.valid, built)
-        # largest pool width dividing the (128-rounded) per-shard rows
-        # that also survives the fused kernel's block rounding (the packed
-        # kernel rejects widths it would round past per_shard — advisor r3)
-        from ..ops.pallas_kernels import preserved_pool_width
+        # largest pool width dividing the (128-rounded) per-shard rows (the
+        # packed pool scan refuses widths that do not divide them)
+        from ..ops.pool_scan import preserved_pool_width
 
         w = preserved_pool_width(self.per_shard)
         key = ("fused8", k, pool, w, self.residual, self.int8_epilogue)
